@@ -1,11 +1,15 @@
 """Command line: run the Held-Suarez model on the port.
 
-    python -m geosongpu_tpu_torch.cli run [--preset held_suarez_c48_l72]
+    python -m geosongpu_tpu_torch.cli run [--preset NAME]
         [--npx N --npz K] --steps S [--device cuda|cpu]
 
-The preset is the configuration of the repository's headline benchmark
-(bench.py): c48-L72, dt 600 s, n_split 6, hord_tm 6, without the fused
-substep kernels.  CUDA is required unless `--device cpu` is given.
+Both presets are Held-Suarez c48-L72, dt 600 s, n_split 6, hord_tm 6, the
+configuration of the repository's headline benchmark (bench.py).
+`held_suarez_c48_l72_fused` is the one bench.py runs on its accelerator:
+the fused substep (pallas_dycore=True; CUDA kernels dsw_csw1, dsw_csw2,
+dsw_transport, dsw_wind and dsw_tracer_acc).  `held_suarez_c48_l72` runs
+the eager PyTorch substep instead.  CUDA is required unless `--device cpu`
+is given.
 """
 from __future__ import annotations
 
@@ -19,6 +23,9 @@ from geosongpu_tpu.core.config import DycoreConfig
 PRESETS = {
     "held_suarez_c48_l72": DycoreConfig(npx=48, npz=72, dt=600.0, n_split=6,
                                         hord_tm=6, pallas_dycore=False),
+    "held_suarez_c48_l72_fused": DycoreConfig(npx=48, npz=72, dt=600.0,
+                                              n_split=6, hord_tm=6,
+                                              pallas_dycore=True),
 }
 
 

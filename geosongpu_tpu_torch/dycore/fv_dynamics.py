@@ -4,10 +4,13 @@ Per model step: k_split x [n_split acoustic substeps -> accumulated-flux
 tracer transport -> vertical remap], then the diagnostics.  The
 reference's lax.scan over substeps is a Python loop here.
 
-The vertical remap is the one kernel of this path: with remap_band > 0 a
-CUDA tensor goes through the hand-written CUDA kernel
-(ops/kernels/remap.py) and a CPU tensor through its plain PyTorch version;
-remap_band == 0 runs the full overlap form everywhere.
+Kernels: with remap_band > 0 the vertical remap goes through the
+hand-written CUDA kernel (ops/kernels/remap.py); remap_band == 0 runs the
+full overlap form everywhere.  With pallas_dycore the substep is
+sw_fused.d_sw_substep_fused (four CUDA kernels per substep) and the
+z_tracer subcycles run dsw_tracer_acc (ops/kernels/dsw.py); otherwise the
+substep is the eager sw.d_sw_substep.  Every kernel wrapper launches its
+kernel for CUDA tensors and runs its plain PyTorch version for CPU ones.
 """
 from __future__ import annotations
 
@@ -24,21 +27,26 @@ from ..core.chart_corners import ChartCorners
 from ..core.state import DycoreState
 from ..device import to_torch
 from ..ops.fvtp2d import ddx, ddy, fvtp2d
-from ..ops.kernels.remap import load_library, remap_banded
+from ..ops.kernels.build import load_library
+from ..ops.kernels.remap import remap_banded
 from ..ops.remap import remap_field
 from ..ops.vertical import cumsum_k, interfaces_from_delp
 from ..parallel.halo import HaloOps, build_halo_ops
 from .sw import (PaddedMetrics, StagResample, d_sw_substep, fill_substep,
                  padded_metrics, stag_resample_tables)
+from .sw_fused import d_sw_substep_fused, tracer_interval_advect
 
 
 def check_supported(cfg: DycoreConfig) -> None:
     """Raise NotImplementedError for the options this port does not run
     yet, naming the ROADMAP item that will port them."""
     unported = []
-    if cfg.pallas_dycore:
-        unported.append("pallas_dycore=True (the fused substep kernels: "
-                        "ROADMAP queue B items 1-5 and 7)")
+    # pallas_jt (J-tiling) is ignored: the JAX package's tiled kernels are
+    # bit-identical to whole faces (tests/test_pallas_dycore.py:125-150)
+    if cfg.pallas_kt:
+        unported.append(f"pallas_kt={cfg.pallas_kt} (TPU vertical tiling, "
+                        "which changes the column fold of dsw_csw2 and "
+                        "dsw_wind; TPU-only machinery per the ROADMAP)")
     if not cfg.hydrostatic:
         unported.append("hydrostatic=False (ROADMAP queue A item 7)")
     if not cfg.z_tracer and cfg.ntracers > 0:
@@ -82,6 +90,8 @@ def build_context(config: DycoreConfig, grid: Grid, ak: np.ndarray,
     """Static data on `device`, for flat terrain.  Raises
     NotImplementedError for an option the port does not run."""
     check_supported(config)
+    if config.pallas_dycore and torch.device(device).type == "cuda":
+        load_library()   # a card without a working build fails here
     chart = None
     if config.chart_corners:
         chart = ChartCorners.from_tables(
@@ -136,10 +146,12 @@ def _remap_winds(u, v, delp_padded, ak, bk, ptop, h, ny, nx, rm):
 
 def _advect_tracers_accumulated(q, delp0, tacc, ops: HaloOps,
                                 m: PaddedMetrics, hord: int, q_split: int,
-                                dt: float, chart=None):
+                                dt: float, chart=None, fused: bool = False):
     """FV3 z_tracer mode: advect tracers once per remap interval with the
     time-accumulated advective winds and mass fluxes, in q_split
-    subcycles.  Preserves q == const exactly."""
+    subcycles.  Preserves q == const to f32 rounding (the PPM edge weights
+    7/12 and 1/12 are inexact in f32).  fused: each subcycle runs
+    dsw_tracer_acc once per tracer (the JAX package's fused path)."""
     if chart is not None:
         fx = lambda a: chart.apply_scalar(ops.fill(a, "x"), "x")
     else:
@@ -150,6 +162,18 @@ def _advect_tracers_accumulated(q, delp0, tacc, ops: HaloOps,
     islice = (slice(None), slice(h, h + ny), slice(h, h + nx))
     delp = delp0
     T = q.shape[-1]
+
+    if fused:
+        for _ in range(q_split):
+            pd_x = fx(delp)
+            qxs = [fx(q[..., t]) for t in range(T)]
+            qys = qxs if chart is not None else \
+                [ops.fill(q[..., t], "y") for t in range(T)]
+            dnew, qn = tracer_interval_advect(qxs, qys, pd_x, uacc, vacc, dt,
+                                              mfx, mfy, m, hord)
+            q = torch.stack([a[islice] for a in qn], dim=-1)
+            delp = dnew[islice]
+        return q
 
     crx = uacc * dt * m.rdxc
     cry = vacc * dt * m.rdyc
@@ -190,6 +214,7 @@ def fv_dynamics_step(state: DycoreState, ctx: DycoreContext,
         q = None
     chart = ctx.chart
     stag = ctx.stag if _use_exchange(cfg) else None
+    substep = d_sw_substep_fused if cfg.pallas_dycore else d_sw_substep
 
     F = delp.shape[0]
     Ny, Nx, K = ny + 2 * h, nx + 2 * h, cfg.npz
@@ -199,7 +224,7 @@ def fv_dynamics_step(state: DycoreState, ctx: DycoreContext,
                 ops.zeros((F, Ny, Nx + 1, K)), ops.zeros((F, Ny + 1, Nx, K))]
         for _ in range(cfg.n_split):
             s = fill_substep(ops, u, v, delp, pt, chart=chart)
-            out = d_sw_substep(
+            out = substep(
                 s, m, ops, dt_acoustic, cfg.ptop, hord=cfg.hord,
                 d2_bg=cfg.d2_bg, hord_mt=cfg.hord_mt, hord_tm=cfg.hord_tm,
                 chart=chart, stag_tabs=stag, vtx_damp=cfg.vtx_damp)
@@ -216,7 +241,8 @@ def fv_dynamics_step(state: DycoreState, ctx: DycoreContext,
             mfy_acc = mfy_acc + tacc[3][:, h:h + ny + 1, h:h + nx]
             q = _advect_tracers_accumulated(q, delp0, tacc, ops, m, cfg.hord,
                                             cfg.q_split, dt_acoustic,
-                                            chart=chart)
+                                            chart=chart,
+                                            fused=cfg.pallas_dycore)
 
         # ---- vertical remap back to the reference hybrid coordinate ----
         pe1 = interfaces_from_delp(delp, cfg.ptop)

@@ -1,10 +1,9 @@
 """Banded vertical remap as a hand-written CUDA kernel (csrc/remap_banded.cu).
 
-Counterpart of geosongpu_tpu/ops/pallas/remap.py.  The library is compiled
-with nvcc for sm_90a on first use, from the package's own sources, into
-`geosongpu_tpu_torch/_build/` (rebuilt when the source's hash changes), and
-bound with ctypes through a plain C entry point.  Nothing is compiled or
-loaded at import time.
+Counterpart of geosongpu_tpu/ops/pallas/remap.py.  The kernel is part of
+the package's one CUDA library (ops/kernels/build.py: nvcc for sm_90a on
+first use, ctypes binding through a plain C entry point).  Nothing is
+compiled or loaded at import time.
 
 `remap_banded` is the wrapper: for tensors on the CPU it runs the plain
 PyTorch version (ops/remap.py::remap_fields_banded); for CUDA tensors it
@@ -14,87 +13,16 @@ launches.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from dataclasses import dataclass
-from pathlib import Path
 
 import torch
 
 from ..remap import _check_kord, remap_fields_banded
+from .build import load_library
 
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "remap_banded.cu"
-BUILD_DIR = _PKG / "_build"
 MAX_FIELDS = 4  # kMaxFields in the source
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-
-@dataclass(frozen=True)
-class KernelLibrary:
-    fn: object            # the ctypes function remap_banded_f32
-    path: Path
-    build_seconds: float  # 0.0 when the library was already built
-    build_log: str        # nvcc/ptxas output of the build
-
-
-_LIBRARY = None  # the loaded KernelLibrary, one per process
-
-
-def find_nvcc() -> str:
-    """nvcc from $CUDA_HOME, then PATH, then the toolkit's default place."""
-    cands = []
-    if os.environ.get("CUDA_HOME"):
-        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
-    which = shutil.which("nvcc")
-    if which:
-        cands.append(which)
-    cands.append("/usr/local/cuda/bin/nvcc")
-    for c in cands:
-        if os.path.isfile(c) and os.access(c, os.X_OK):
-            return c
-    raise RuntimeError("remap_banded: nvcc not found (set CUDA_HOME or put "
-                       "nvcc on PATH); the CUDA kernel cannot be built")
-
-
-def load_library() -> KernelLibrary:
-    """Build (if needed) and load the kernel library.  Raises when there is
-    no CUDA device, no nvcc, or the build or load fails: there is no
-    fallback."""
-    global _LIBRARY
-    if _LIBRARY is not None:
-        return _LIBRARY
-    if not torch.cuda.is_available():
-        raise RuntimeError("remap_banded: no CUDA device is available")
-    nvcc = find_nvcc()
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    so = BUILD_DIR / f"remap_banded_{digest}.so"
-    seconds, log = 0.0, ""
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f"remap_banded_{digest}.{os.getpid()}.tmp.so"
-        t0 = time.perf_counter()
-        res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                             capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"remap_banded: nvcc failed with code "
-                               f"{res.returncode}:\n{log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    fn = lib.remap_banded_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    _LIBRARY = KernelLibrary(fn=fn, path=so, build_seconds=seconds,
-                             build_log=log)
-    return _LIBRARY
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_void_p)
 
 
 def _check_inputs(qs, pe1, pe2):
@@ -131,7 +59,7 @@ def remap_banded(qs, pe1: torch.Tensor, pe2: torch.Tensor, kord: int = 8,
     if dev.type != "cuda":
         raise ValueError(f"remap_banded: unsupported device {dev}")
     _check_inputs(qs, pe1, pe2)
-    lib = load_library()
+    fn = load_library().function("remap_banded_f32", _ARGTYPES)
     K = qs[0].shape[-1]
     ncol = qs[0].numel() // K
     band = min(band, K - 1)
@@ -141,8 +69,8 @@ def remap_banded(qs, pe1: torch.Tensor, pe2: torch.Tensor, kord: int = 8,
     o_ptrs = (ctypes.c_void_p * n)(*[o.data_ptr() for o in outs])
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.fn(q_ptrs, o_ptrs, n, pe1.data_ptr(), pe2.data_ptr(), ncol, K,
-                band, index, stream)
+    rc = fn(q_ptrs, o_ptrs, n, pe1.data_ptr(), pe2.data_ptr(), ncol, K,
+            band, index, stream)
     if rc != 0:
         raise RuntimeError(f"remap_banded: kernel launch failed with CUDA "
                            f"error {rc}")

@@ -3,6 +3,11 @@
 The reference writes its K-cumsums as triangular matmuls because the TPU
 lowers a lane cumsum to an O(K^2) reduce-window; on the GPU a scan along
 the contiguous minor axis is the natural form, so these are torch.cumsum.
+The sums accumulate in float64 and round once to float32, as torch.cumsum
+of a float32 tensor already does on the CPU; the card's float32 scan
+otherwise moves pkz through the ill-conditioned dpk of thin layers and the
+c48-L72 substep winds by up to 7e-2 m/s against the CPU (measured on an
+H100).  The column kernels (csrc/dsw_common.cuh) sum in double too.
 """
 from __future__ import annotations
 
@@ -11,12 +16,12 @@ import torch
 
 def cumsum_k(x: torch.Tensor) -> torch.Tensor:
     """Inclusive forward cumsum along the last axis."""
-    return torch.cumsum(x, dim=-1)
+    return torch.cumsum(x, dim=-1, dtype=torch.float64).to(x.dtype)
 
 
 def rcumsum_k(x: torch.Tensor) -> torch.Tensor:
     """Inclusive reverse cumsum (suffix sum) along the last axis."""
-    return torch.flip(torch.cumsum(torch.flip(x, (-1,)), dim=-1), (-1,))
+    return torch.flip(cumsum_k(torch.flip(x, (-1,))), (-1,))
 
 
 def interfaces_from_delp(delp: torch.Tensor, ptop: float) -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""Tests that need an NVIDIA card: the remap_banded CUDA kernel against its
-plain PyTorch version, and the port's model on the card against the CPU.
-They skip without CUDA.  This file imports no jax, so on the card's
-machine it runs on its own:
+"""Tests that need an NVIDIA card: the CUDA kernels (remap_banded and the
+five fused substep kernels) against their plain PyTorch versions, their
+input checks, and the port's model on the card against the CPU, eager and
+fused.  They skip without CUDA.  This file imports no jax, so on the
+card's machine it runs on its own:
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_cuda.py -q
 """
@@ -15,8 +16,14 @@ torch = pytest.importorskip("torch")
 from geosongpu_tpu.core.config import DycoreConfig  # noqa: E402
 from geosongpu_tpu_torch.core.state import (state_from_numpy,  # noqa: E402
                                             state_to_numpy)
+from geosongpu_tpu_torch.dycore.sw import (PaddedMetrics,  # noqa: E402
+                                           fill_substep)
+from geosongpu_tpu_torch.dycore.sw_fused import \
+    substep_kernel_args  # noqa: E402
 from geosongpu_tpu_torch.models.held_suarez import build_model  # noqa: E402
 from geosongpu_tpu_torch.ops import remap as tremap  # noqa: E402
+from geosongpu_tpu_torch.ops.kernels import dsw  # noqa: E402
+from geosongpu_tpu_torch.ops.kernels.dsw import METRIC_STAGGER  # noqa: E402
 from geosongpu_tpu_torch.ops.kernels.remap import remap_banded  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -104,3 +111,155 @@ def test_model_rejects_unported_option_on_card(cuda):
     cfg = dataclasses.replace(DycoreConfig(npx=12, npz=8), hydrostatic=False)
     with pytest.raises(NotImplementedError):
         build_model(cfg, cuda)
+
+
+# ---- the fused substep kernels -------------------------------------------
+
+SMALL = DycoreConfig(npx=12, npz=8, dt=1200.0, n_split=2, hord_tm=6)
+COLUMN_KERNELS = ("dsw_csw2", "dsw_wind")   # gate with a wind floor
+
+
+def _within_gate(name, got, want):
+    """Whole padded outputs: 1e-5 of max|plain|, or for the kernels that
+    integrate columns max(1e-4 x max|plain|, 2e-3 m/s)."""
+    assert len(got) == len(want)
+    for n, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.dtype == torch.float32, (name, n)
+        assert bool(g.isfinite().all()), (name, n)
+        scale = float(w.abs().max())
+        limit = (max(1e-4 * scale, 2e-3) if name in COLUMN_KERNELS
+                 else 1e-5 * scale)
+        assert float((g - w).abs().max()) <= limit, (name, n)
+
+
+def _model_args(model, dev):
+    """Every fused kernel's arguments from a real c12-L8 state on the
+    card: 3 K of pt noise, a tracer, 2 steps, then one substep of plain
+    versions (the tracer kernel takes that substep's fluxes)."""
+    cfg, ctx = model.config, model.ctx
+    st = model.init(perturb=3.0)
+    rng = np.random.default_rng(5)
+    st.q = torch.as_tensor((1.0 + 0.2 * rng.random(tuple(st.q.shape)))
+                           .astype(np.float32), device=dev)
+    st = model.run(st, 2)
+    dt = cfg.dt / cfg.n_split
+    s = fill_substep(ctx.ops, st.u, st.v, st.delp, st.pt, chart=ctx.chart)
+    args, out = substep_kernel_args(
+        s, ctx.metrics, ctx.ops, dt, cfg.ptop, hord=cfg.hord,
+        d2_bg=cfg.d2_bg, hord_mt=cfg.hord_mt, hord_tm=cfg.hord_tm,
+        chart=ctx.chart, stag_tabs=ctx.stag, vtx_damp=0.05)
+    qx = ctx.chart.apply_scalar(ctx.ops.fill(st.q[..., 0], "x"), "x")
+    args["dsw_tracer_acc"] = (qx, qx, s.pd_x, out.uct_pad, out.vct_pad,
+                              out.mfx_pad, out.mfy_pad, ctx.metrics, dt,
+                              cfg.hord)
+    return args
+
+
+def _synthetic_args(name, F, Ny, Nx, K, seed, dev):
+    """Random, well-conditioned arguments of kernel `name` on a face of
+    Ny x Nx padded cells (Ny != Nx: every extent is exercised): metrics
+    near a unit grid, Courant numbers below 0.5."""
+    rng = np.random.default_rng(seed)
+    u = lambda *shape: rng.uniform(-1.0, 1.0, shape)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    c, xi, yi = (F, Ny, Nx, K), (F, Ny, Nx + 1, K), (F, Ny + 1, Nx, K)
+    cn = (F, Ny + 1, Nx + 1, K)
+    small = {"fcor": 1e-4, "cosa_i": 0.1, "cosa_j": 0.1, "cosa_c": 0.1,
+             "cosa_cn": 0.1, "dw00": 0.05, "dw01": 0.05, "dw10": 0.05,
+             "dw11": 0.05, "jwm": 0.2, "jwp": 0.2, "iwm": 0.2, "iwp": 0.2,
+             "dr11": 0.05, "r12": 0.05, "r21": 0.05, "dr22": 0.05}
+    mets = {}
+    for f, (sy, sx) in METRIC_STAGGER.items():
+        shape = (F, Ny + sy, Nx + sx, 1)
+        if f in ("phis", "div_blend"):
+            mets[f] = np.zeros(shape)
+        elif f in small:
+            mets[f] = small[f] * u(*shape)
+        else:
+            mets[f] = 1.0 + 0.1 * u(*shape)
+    m = PaddedMetrics(**{f: t(a) for f, a in mets.items()})
+    delp = lambda shape: 1000.0 + 100.0 * u(*shape)
+    pt = lambda shape: 300.0 + 10.0 * u(*shape)
+    wind = lambda shape: 0.3 * u(*shape)
+    if name == "dsw_csw1":
+        return (t(wind(yi)), t(wind(xi)), t(wind(c)), t(wind(c)),
+                t(delp(c)), t(delp(c)), t(pt(c)), t(pt(c)), m, 0.5)
+    if name == "dsw_csw2":
+        return (t(wind(xi)), t(wind(yi)), t(delp(c)), t(pt(c)),
+                t(rng.uniform(0.0, 1.0, c)), t(1e-4 * u(*c)), m, 100.0, 0.5)
+    if name == "dsw_transport":
+        return (t(delp(c)), t(delp(c)), t(pt(c)), t(pt(c)), t(wind(xi)),
+                t(wind(yi)), m, 1.0, 8)
+    if name == "dsw_wind":
+        return (t(wind(yi)), t(wind(xi)), t(wind(xi)), t(wind(yi)),
+                t(delp(c)), t(pt(c)), t(1e-4 * u(*c)), t(1e-5 * u(*cn)), m,
+                100.0, 1.0, 8, 0.015, 0.05)
+    return (t(pt(c) / 300.0), t(pt(c) / 300.0), t(delp(c)), t(wind(xi)),
+            t(wind(yi)), t(100.0 * u(*xi)), t(100.0 * u(*yi)), m, 1.0, 8)
+
+
+@pytest.fixture(scope="module")
+def c12_args():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    return _model_args(build_model(SMALL, dev), dev)
+
+
+@pytest.mark.parametrize("name", [k.__name__ for k in dsw.KERNELS])
+def test_dsw_kernel_matches_plain_c12(c12_args, name):
+    a = c12_args[name]
+    kern = getattr(dsw, name)
+    before = kern.launches
+    got = kern(*a)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    _within_gate(name, got, getattr(dsw, name + "_plain")(*a))
+
+
+@pytest.mark.parametrize("name", [k.__name__ for k in dsw.KERNELS])
+def test_dsw_kernel_matches_plain_non_square(cuda, name):
+    a = _synthetic_args(name, 2, 10, 13, 9, seed=3, dev=cuda)
+    got = getattr(dsw, name)(*a)
+    torch.cuda.synchronize()
+    _within_gate(name, got, getattr(dsw, name + "_plain")(*a))
+
+
+@pytest.mark.parametrize("name", [k.__name__ for k in dsw.KERNELS])
+def test_dsw_wrapper_rejects_bad_inputs(cuda, name):
+    a = list(_synthetic_args(name, 1, 6, 7, 4, seed=4, dev=cuda))
+    kern = getattr(dsw, name)
+    with pytest.raises(TypeError):
+        kern(*([a[0].double()] + a[1:]))
+    with pytest.raises(ValueError):
+        kern(*([a[0][..., :-1].contiguous()] + a[1:]))
+    with pytest.raises(ValueError):
+        kern(*([a[0].transpose(1, 2).contiguous().transpose(1, 2)] + a[1:]))
+    m = a[[i for i, x in enumerate(a) if isinstance(x, PaddedMetrics)][0]]
+    bad = m._replace(area=m.area.double())
+    with pytest.raises(TypeError):
+        kern(*[bad if x is m else x for x in a])
+
+
+def test_fused_model_on_card_matches_cpu(cuda):
+    """3 fused steps at c12-L8 from one numpy state, on the card (through
+    the five kernels) and on the CPU (their plain versions)."""
+    import dataclasses as dc
+
+    cfg = dc.replace(SMALL, ntracers=1, pallas_dycore=True)
+    m_cpu = build_model(cfg, "cpu")
+    m_gpu = build_model(cfg, cuda)
+    start = state_to_numpy(m_cpu.init(perturb=3.0))
+    rng = np.random.default_rng(5)
+    start["q"] = (1.0 + 0.2 * rng.random(start["q"].shape)).astype(np.float32)
+    a = state_to_numpy(m_cpu.run(state_from_numpy(start, "cpu"), 3))
+    kernels = list(dsw.KERNELS) + [remap_banded]
+    before = [k.launches for k in kernels]
+    b = state_to_numpy(m_gpu.run(state_from_numpy(start, cuda), 3))
+    per_step = [cfg.n_split] * 4 + [cfg.q_split, 3]
+    assert [k.launches - b0 for k, b0 in zip(kernels, before)] \
+        == [3 * n for n in per_step]
+    for f in ("u", "v", "delp", "pt", "q", "ps"):
+        scale = float(np.abs(a[f]).max())
+        atol = 6e-3 if f in ("u", "v") else 0.0
+        assert float(np.abs(a[f] - b[f]).max()) <= max(1e-4 * scale, atol), f

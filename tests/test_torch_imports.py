@@ -66,7 +66,7 @@ def _no_cuda_here():
 
 def test_kernel_loader_raises_without_cuda():
     _no_cuda_here()
-    from geosongpu_tpu_torch.ops.kernels.remap import load_library
+    from geosongpu_tpu_torch.ops.kernels.build import load_library
 
     with pytest.raises(RuntimeError):
         load_library()
@@ -99,7 +99,7 @@ def test_wrapper_on_cpu_runs_plain_version_and_counts_nothing():
 
 
 @pytest.mark.parametrize("change", [
-    {"pallas_dycore": True},
+    {"pallas_kt": 8},           # TPU vertical tiling
     {"hydrostatic": False},
     {"z_tracer": False},
     {"overlap_fills": True},
@@ -120,3 +120,4 @@ def test_main_path_config_is_supported():
     from geosongpu_tpu_torch.dycore.fv_dynamics import check_supported
 
     check_supported(PRESETS["held_suarez_c48_l72"])
+    check_supported(PRESETS["held_suarez_c48_l72_fused"])
