@@ -3,13 +3,25 @@
     python -m geosongpu_tpu_torch.cli run [--preset NAME]
         [--npx N --npz K] --steps S [--device cuda|cpu]
 
-Both presets are Held-Suarez c48-L72, dt 600 s, n_split 6, hord_tm 6, the
-configuration of the repository's headline benchmark (bench.py).
-`held_suarez_c48_l72_fused` is the one bench.py runs on its accelerator:
-the fused substep (pallas_dycore=True; CUDA kernels dsw_csw1, dsw_csw2,
-dsw_transport, dsw_wind and dsw_tracer_acc).  `held_suarez_c48_l72` runs
-the eager PyTorch substep instead.  CUDA is required unless `--device cpu`
-is given.
+Every preset is Held-Suarez with 72 levels, dt 600 s and hord_tm 6, the
+configuration of the repository's headline benchmark (bench.py) and of the
+rungs of scripts/bench_ladder.py; n_split is 6 except at c192:
+
+* `held_suarez_c48_l72_fused`: c48, the fused substep (pallas_dycore=True;
+  CUDA kernels dsw_csw1, dsw_csw2, dsw_transport, dsw_wind and
+  dsw_tracer_acc), the exchange damping form;
+* `held_suarez_c48_l72`: the same with the eager PyTorch substep;
+* `held_suarez_c192_l72_fused`: c192, the fused substep with the blend
+  damping form (dsw_wind computes the damping divergence itself), and
+  n_split 8: with the ladder's n_split 6 the acoustic substep of 100 s
+  exceeds the horizontal stability limit of the c192 grid, and the model,
+  like the JAX package's, goes non-finite in its sixth step;
+* `held_suarez_c48_l72_nh_fused`: c48 nonhydrostatic with per-substep
+  tracers (hydrostatic=False, z_tracer=False): dsw_transport carries w and
+  delz, dsw_tracer runs once per tracer and substep, the implicit vertical
+  solve follows, and dsw_wind takes the p', phi' and rho of dsw_nh_pert.
+
+CUDA is required unless `--device cpu` is given.
 """
 from __future__ import annotations
 
@@ -18,14 +30,18 @@ import dataclasses
 import sys
 import time
 
-from geosongpu_tpu.core.config import DycoreConfig
+from .core.config import DycoreConfig
 
+_HS72 = dict(npz=72, dt=600.0, n_split=6, hord_tm=6)
 PRESETS = {
-    "held_suarez_c48_l72": DycoreConfig(npx=48, npz=72, dt=600.0, n_split=6,
-                                        hord_tm=6, pallas_dycore=False),
-    "held_suarez_c48_l72_fused": DycoreConfig(npx=48, npz=72, dt=600.0,
-                                              n_split=6, hord_tm=6,
-                                              pallas_dycore=True),
+    "held_suarez_c48_l72": DycoreConfig(npx=48, pallas_dycore=False, **_HS72),
+    "held_suarez_c48_l72_fused": DycoreConfig(npx=48, pallas_dycore=True,
+                                              **_HS72),
+    "held_suarez_c192_l72_fused": DycoreConfig(
+        npx=192, pallas_dycore=True, **{**_HS72, "n_split": 8}),
+    "held_suarez_c48_l72_nh_fused": DycoreConfig(
+        npx=48, pallas_dycore=True, hydrostatic=False, z_tracer=False,
+        **_HS72),
 }
 
 

@@ -7,10 +7,9 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
-from geosongpu_tpu.core.config import DycoreConfig
-from geosongpu_tpu.core.grid import KAPPA
-
 from ..device import DTYPE, to_numpy, to_torch
+from .config import DycoreConfig
+from .grid import KAPPA
 
 
 @dataclass

@@ -186,19 +186,23 @@ __device__ __forceinline__ float chart_resample(const Arr& a,
   return c + (met(m, IWM, f, j, i) * (w - c) + met(m, IWP, f, j, i) * (e - c));
 }
 
-// _center_to_corner_w at corner (jc, ic) of a centre array: the 4-point
-// average plus sum_k dw_k (a_k - avg4) over the edge-padded cells.
-__device__ __forceinline__ float corner_w(const Arr& a, const Metrics& m,
-                                          int f, int jc, int ic, int k) {
-  const float a00 = a.c(f, jc - 1, ic - 1, k);
-  const float a01 = a.c(f, jc - 1, ic, k);
-  const float a10 = a.c(f, jc, ic - 1, k);
-  const float a11 = a.c(f, jc, ic, k);
+// _center_to_corner_w at corner (jc, ic) from the four surrounding centre
+// values: the 4-point average plus sum_k dw_k (a_k - avg4).
+__device__ __forceinline__ float corner_w4(float a00, float a01, float a10,
+                                           float a11, const Metrics& m, int f,
+                                           int jc, int ic) {
   const float avg4 = 0.25f * (a00 + a01 + a10 + a11);
   return avg4 + (met(m, DW00, f, jc, ic) * (a00 - avg4) +
                  met(m, DW01, f, jc, ic) * (a01 - avg4) +
                  met(m, DW10, f, jc, ic) * (a10 - avg4) +
                  met(m, DW11, f, jc, ic) * (a11 - avg4));
+}
+
+// ... of a centre array, over its edge-padded cells.
+__device__ __forceinline__ float corner_w(const Arr& a, const Metrics& m,
+                                          int f, int jc, int ic, int k) {
+  return corner_w4(a.c(f, jc - 1, ic - 1, k), a.c(f, jc - 1, ic, k),
+                   a.c(f, jc, ic - 1, k), a.c(f, jc, ic, k), m, f, jc, ic);
 }
 
 // ---- column integral (dycore/sw.py::_hydrostatic_fields) -------------
@@ -264,8 +268,11 @@ __host__ __forceinline__ cudaError_t launch_hydro(
 // Courant numbers and area fluxes are rebuilt from the advective winds u
 // ([F, Ny, Nx+1, K]) and v ([F, Ny+1, Nx, K]) with the plain expressions
 // crx = u dt rdxc, xfx = u dt dy, cry = v dt rdyc, yfx = v dt dx.
-// Up to two fields are transported together; field 1's fluxes are
-// weighted by field 0's (pt by the mass flux in dsw_transport).
+// Up to two fields are transported together.  Field 0's outer fluxes are
+// weighted by the mass flux passed to the launch, or by the area flux when
+// there is none; field 1's by field 0's fluxes (pt by the mass flux of delp
+// in dsw_transport), or, with second_area set, by the area flux (delz
+// beside the mass-weighted w in the nonhydrostatic pass).
 constexpr int kMaxFv = 2;
 
 struct FvFields {
@@ -276,6 +283,7 @@ struct FvFields {
   float* fx[kMaxFv];        // [F, Ny, Nx+1, K]
   float* fy[kMaxFv];        // [F, Ny+1, Nx, K]
   int nf;
+  int second_area;          // field 1 takes the area flux as its weight
 };
 
 // Stage 1, per cell: q_i = (qy area + ddy(fyy)) / (area + ddy(yfx)) with
@@ -317,8 +325,8 @@ fv_inner(Metrics m, int F, int Ny, int Nx, int K, FvFields fv,
 }
 
 // Stage 2, per interface over [F, Ny+1, Nx+1, K]: fx = ppm_flux(q_i, crx)
-// times mfx (or xfx when mfx is null) for field 0, times field 0's fx for
-// field 1; fy likewise from q_j.
+// times mfx (or xfx when mfx is null) for field 0, times field 0's fx (or
+// xfx with second_area) for field 1; fy likewise from q_j.
 __global__ void __launch_bounds__(kThreads)
 fv_flux(Metrics m, int F, int Ny, int Nx, int K, FvFields fv,
         const float* __restrict__ u, const float* __restrict__ v,
@@ -330,24 +338,26 @@ fv_flux(Metrics m, int F, int Ny, int Nx, int K, FvFields fv,
     const long long o = off(Ny, Nx + 1, K, f, j, i, k);
     const float uu = u[o];
     const float crx = uu * dt * met(m, RDXC, f, j, i);
-    float w = mfx ? mfx[o] : uu * dt * met(m, DY, f, j, i);
+    const float xfx = uu * dt * met(m, DY, f, j, i);
+    float w = mfx ? mfx[o] : xfx;
     for (int n = 0; n < fv.nf; ++n) {
       const Arr qi = {fv.q_i[n], Ny, Nx, K};
       const float flux = ppm_flux(line_x(qi, f, j, k), i, crx, hord) * w;
       fv.fx[n][o] = flux;
-      if (n == 0) w = flux;
+      if (n == 0) w = fv.second_area ? xfx : flux;
     }
   }
   if (i < Nx) {  // y-interface (j, i)
     const long long o = off(Ny + 1, Nx, K, f, j, i, k);
     const float vv = v[o];
     const float cry = vv * dt * met(m, RDYC, f, j, i);
-    float w = mfy ? mfy[o] : vv * dt * met(m, DX, f, j, i);
+    const float yfx = vv * dt * met(m, DX, f, j, i);
+    float w = mfy ? mfy[o] : yfx;
     for (int n = 0; n < fv.nf; ++n) {
       const Arr qj = {fv.q_j[n], Ny, Nx, K};
       const float flux = ppm_flux(line_y(qj, f, i, k), j, cry, hord) * w;
       fv.fy[n][o] = flux;
-      if (n == 0) w = flux;
+      if (n == 0) w = fv.second_area ? yfx : flux;
     }
   }
 }

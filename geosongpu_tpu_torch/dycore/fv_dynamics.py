@@ -1,16 +1,19 @@
-"""Full hydrostatic FV dynamics step (geosongpu_tpu/dycore/fv_dynamics.py).
+"""Full FV dynamics step (geosongpu_tpu/dycore/fv_dynamics.py).
 
 Per model step: k_split x [n_split acoustic substeps -> accumulated-flux
-tracer transport -> vertical remap], then the diagnostics.  The
-reference's lax.scan over substeps is a Python loop here.
+tracer transport (z_tracer) -> vertical remap], then the w sponge and the
+diagnostics.  Hydrostatic, or nonhydrostatic with w and delz prognosed
+(hydrostatic=False); tracers once per remap interval (z_tracer) or every
+substep; either damping form.  The reference's lax.scan over substeps is a
+Python loop here.
 
 Kernels: with remap_band > 0 the vertical remap goes through the
 hand-written CUDA kernel (ops/kernels/remap.py); remap_band == 0 runs the
 full overlap form everywhere.  With pallas_dycore the substep is
-sw_fused.d_sw_substep_fused (four CUDA kernels per substep) and the
-z_tracer subcycles run dsw_tracer_acc (ops/kernels/dsw.py); otherwise the
-substep is the eager sw.d_sw_substep.  Every kernel wrapper launches its
-kernel for CUDA tensors and runs its plain PyTorch version for CPU ones.
+sw_fused.d_sw_substep_fused (the dsw_* CUDA kernels of ops/kernels/dsw.py)
+and the z_tracer subcycles run dsw_tracer_acc; otherwise the substep is
+the eager sw.d_sw_substep.  Every kernel wrapper launches its kernel for
+CUDA tensors and runs its plain PyTorch version for CPU ones.
 """
 from __future__ import annotations
 
@@ -19,11 +22,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from geosongpu_tpu.core.chart_corners import build_chart_tables
-from geosongpu_tpu.core.config import DycoreConfig
-from geosongpu_tpu.core.grid import Grid
-
-from ..core.chart_corners import ChartCorners
+from ..core.chart_corners import ChartCorners, build_chart_tables
+from ..core.config import DycoreConfig
+from ..core.grid import Grid
 from ..core.state import DycoreState
 from ..device import to_torch
 from ..ops.fvtp2d import ddx, ddy, fvtp2d
@@ -32,14 +33,15 @@ from ..ops.kernels.remap import remap_banded
 from ..ops.remap import remap_field
 from ..ops.vertical import cumsum_k, interfaces_from_delp
 from ..parallel.halo import HaloOps, build_halo_ops
+from .nh_solver import hydrostatic_delz
 from .sw import (PaddedMetrics, StagResample, d_sw_substep, fill_substep,
                  padded_metrics, stag_resample_tables)
 from .sw_fused import d_sw_substep_fused, tracer_interval_advect
 
 
 def check_supported(cfg: DycoreConfig) -> None:
-    """Raise NotImplementedError for the options this port does not run
-    yet, naming the ROADMAP item that will port them."""
+    """Raise NotImplementedError for the options this port does not run,
+    naming the ROADMAP item they belong to."""
     unported = []
     # pallas_jt (J-tiling) is ignored: the JAX package's tiled kernels are
     # bit-identical to whole faces (tests/test_pallas_dycore.py:125-150)
@@ -47,16 +49,9 @@ def check_supported(cfg: DycoreConfig) -> None:
         unported.append(f"pallas_kt={cfg.pallas_kt} (TPU vertical tiling, "
                         "which changes the column fold of dsw_csw2 and "
                         "dsw_wind; TPU-only machinery per the ROADMAP)")
-    if not cfg.hydrostatic:
-        unported.append("hydrostatic=False (ROADMAP queue A item 7)")
-    if not cfg.z_tracer and cfg.ntracers > 0:
-        unported.append("z_tracer=False (ROADMAP queue A item 8)")
     if cfg.overlap_fills or cfg.rim_split:
-        unported.append("overlap_fills / rim_split (ROADMAP queue A item 8)")
-    if not _use_exchange(cfg):
-        unported.append(f"the blend damping form (damping_exchange="
-                        f"{cfg.damping_exchange!r} at npx={cfg.npx}; "
-                        "ROADMAP queue A item 8)")
+        unported.append("overlap_fills / rim_split (they only pay across "
+                        "devices; ROADMAP queue A item 13)")
     if cfg.dtype != "float32":
         unported.append(f"dtype={cfg.dtype!r} (the port runs float32)")
     if unported:
@@ -212,6 +207,17 @@ def fv_dynamics_step(state: DycoreState, ctx: DycoreContext,
     has_q = q is not None and q.shape[-1] > 0
     if not has_q:
         q = None
+    z_tracer = cfg.z_tracer and has_q   # accumulated-flux tracer transport
+    substep_tracers = has_q and not z_tracer
+    nonhydro = not cfg.hydrostatic
+    if nonhydro:
+        # arm delz on the first step (init ships zeros): exact discrete
+        # hydrostatic balance, so p' == 0 until the dynamics perturbs it
+        delz = torch.where(state.delz > 1.0, state.delz,
+                           hydrostatic_delz(delp, pt, cfg.ptop))
+        w = state.w
+    else:
+        w = delz = None
     chart = ctx.chart
     stag = ctx.stag if _use_exchange(cfg) else None
     substep = d_sw_substep_fused if cfg.pallas_dycore else d_sw_substep
@@ -220,23 +226,33 @@ def fv_dynamics_step(state: DycoreState, ctx: DycoreContext,
     Ny, Nx, K = ny + 2 * h, nx + 2 * h, cfg.npz
     for _ks in range(cfg.k_split):
         delp0 = delp
-        tacc = [ops.zeros((F, Ny, Nx + 1, K)), ops.zeros((F, Ny + 1, Nx, K)),
-                ops.zeros((F, Ny, Nx + 1, K)), ops.zeros((F, Ny + 1, Nx, K))]
+        if z_tracer:
+            tacc = [ops.zeros((F, Ny, Nx + 1, K)),
+                    ops.zeros((F, Ny + 1, Nx, K)),
+                    ops.zeros((F, Ny, Nx + 1, K)),
+                    ops.zeros((F, Ny + 1, Nx, K))]
         for _ in range(cfg.n_split):
-            s = fill_substep(ops, u, v, delp, pt, chart=chart)
+            s = fill_substep(ops, u, v, delp, pt,
+                             q if substep_tracers else None,
+                             w=w, delz=delz, chart=chart)
             out = substep(
                 s, m, ops, dt_acoustic, cfg.ptop, hord=cfg.hord,
-                d2_bg=cfg.d2_bg, hord_mt=cfg.hord_mt, hord_tm=cfg.hord_tm,
-                chart=chart, stag_tabs=stag, vtx_damp=cfg.vtx_damp)
+                d2_bg=cfg.d2_bg, advect_tracers=substep_tracers,
+                hord_mt=cfg.hord_mt, hord_tm=cfg.hord_tm, chart=chart,
+                stag_tabs=stag, vtx_damp=cfg.vtx_damp)
             u, v, delp, pt = out.u, out.v, out.delp, out.pt
-            if has_q:
+            if nonhydro:
+                w, delz = out.w, out.delz
+            if substep_tracers:
+                q = out.q
+            if z_tracer:
                 tacc = [a + b for a, b in zip(tacc, (out.uct_pad, out.vct_pad,
                                                      out.mfx_pad,
                                                      out.mfy_pad))]
             else:
                 mfx_acc = mfx_acc + out.mfx
                 mfy_acc = mfy_acc + out.mfy
-        if has_q:
+        if z_tracer:
             mfx_acc = mfx_acc + tacc[2][:, h:h + ny, h:h + nx + 1]
             mfy_acc = mfy_acc + tacc[3][:, h:h + ny + 1, h:h + nx]
             q = _advect_tracers_accumulated(q, delp0, tacc, ops, m, cfg.hord,
@@ -249,14 +265,34 @@ def fv_dynamics_step(state: DycoreState, ctx: DycoreContext,
         ps = pe1[..., -1]
         pe2 = ctx.ak + ctx.bk * ps[..., None]
         delp_new = pe2[..., 1:] - pe2[..., :-1]
+        # pt, tracers (and w / specific volume) share (pe1, pe2): one
+        # multi-field call computes the overlap geometry once
         nq = 0 if q is None else q.shape[-1]
-        out = rm_many([pt] + [q[..., t] for t in range(nq)], pe1, pe2)
+        fields = [pt] + [q[..., t] for t in range(nq)]
+        if nonhydro:
+            # w remaps mass-weighted like any scalar; delz in its
+            # per-unit-mass form, so that the column height is conserved
+            fields += [w, delz / torch.clamp(delp, min=1e-3)]
+        out = rm_many(fields, pe1, pe2)
         pt = out[0]
         if q is not None:
             q = torch.stack(out[1:1 + nq], dim=-1)
+        if nonhydro:
+            w = out[1 + nq]
+            delz = out[2 + nq] * delp_new
         u, v = _remap_winds(u, v, ops.fill(delp, "x"), ctx.ak, ctx.bk,
                             cfg.ptop, h, ny, nx, rm)
         delp = delp_new
+
+    if nonhydro and cfg.w_sponge_p > 0.0:
+        # model-top Rayleigh sponge on w: upward-propagating acoustic and
+        # gravity waves are absorbed instead of reflecting off the lid
+        pe_s = interfaces_from_delp(delp, cfg.ptop)
+        pm_s = 0.5 * (pe_s[..., 1:] + pe_s[..., :-1])
+        fac = torch.where(pm_s < cfg.w_sponge_p,
+                          float(np.float32(np.exp(-cfg.dt
+                                                  / cfg.w_sponge_tau))), 1.0)
+        w = w * fac
 
     # ---- diagnostics ----------------------------------------------------
     pe = interfaces_from_delp(delp, cfg.ptop)
@@ -271,7 +307,8 @@ def fv_dynamics_step(state: DycoreState, ctx: DycoreContext,
     return DycoreState(
         u=u, v=v, delp=delp, pt=pt,
         q=q if has_q else state.q,
-        w=state.w, delz=state.delz, phis=state.phis,
+        w=w if nonhydro else state.w,
+        delz=delz if nonhydro else state.delz, phis=state.phis,
         ps=ps, omga=omga, ua=ua, va=va,
         mfx=mfx_acc, mfy=mfy_acc,
     )

@@ -1,19 +1,23 @@
-"""C/D-grid shallow-water substep, hydrostatic (geosongpu_tpu/dycore/sw.py).
+"""C/D-grid shallow-water substep (geosongpu_tpu/dycore/sw.py).
 
 One acoustic substep is the Lin-Rood two-grid scheme: c_sw advances the
 C-grid winds half a step to get time-centred advective winds; d_sw then
 transports delp/pt with PPM fluxes and updates the D-grid winds with the
-vorticity flux, the corner KE gradient, divergence damping and the
-backward hydrostatic PGF.  All functions work on padded [6, J, I, K]
-tensors and keep the reference's names, so each one has a counterpart to
-be held against.  The functions are the plain PyTorch versions of the
-substep kernels dsw_csw1 (c_sw_part1), dsw_csw2 (c_sw_part2), dsw_transport
-(transport_part) and dsw_wind (wind_part).
+vorticity flux, the corner KE gradient, divergence damping (the exchange
+form or the in-kernel blend) and the backward PGF.  In nonhydrostatic
+mode the transport also carries w and delz, the implicit vertical
+acoustic solve (nh_solver.py) follows it, and the PGF gains the p', phi'
+and rho terms of the solved state; with advect_tracers the tracers ride
+every substep.  All functions work on padded [6, J, I, K] tensors and keep
+the reference's names, so each one has a counterpart to be held against.
+The functions are the plain PyTorch versions of the substep kernels
+dsw_csw1 (c_sw_part1), dsw_csw2 (c_sw_part2), dsw_transport
+(transport_part) and dsw_wind (wind_part, nh_perturbation_fields).
 
-Not ported yet: the nonhydrostatic branches (ROADMAP queue A item 7), the
-per-substep tracers and the rim-split c_sw (item 8), and the strip form
-of a_grid_winds, a TPU memory optimisation documented as bit-identical to
-the full-array form used here.
+Not here: the rim-split c_sw and the pipelined fills, which only pay
+across devices (ROADMAP queue A item 13), and the strip form of
+a_grid_winds, a memory optimisation of the reference documented as
+bit-identical to the full-array form used here.
 """
 from __future__ import annotations
 
@@ -22,14 +26,14 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from geosongpu_tpu.core.grid import CP_AIR, KAPPA, Grid
-from geosongpu_tpu.core.topology import NFACES
-
+from ..core.grid import CP_AIR, GRAV, KAPPA, RDGAS, Grid
+from ..core.topology import NFACES
 from ..device import to_torch
 from ..ops.fvtp2d import ddx, ddy, fvtp2d
 from ..ops.ppm import ppm_flux, upwind_flux
 from ..ops.vertical import interfaces_from_delp, rcumsum_k
 from ..parallel.halo import HaloOps
+from .nh_solver import vertical_acoustic_solve
 
 P00 = 1.0e5
 
@@ -90,8 +94,8 @@ def padded_metrics(grid: Grid, device,
     cosa_cn, rsin2_cn = grid.cosa_cn, grid.rsin2_cn
     corner_dw = grid.corner_dw
     if chart_cosa:
-        from geosongpu_tpu.core.chart_corners import (chart_corner_dw,
-                                                      chart_cosa_overrides)
+        from ..core.chart_corners import (chart_corner_dw,
+                                          chart_cosa_overrides)
 
         ov = chart_cosa_overrides(grid.n, grid.h)
 
@@ -144,7 +148,7 @@ def padded_metrics(grid: Grid, device,
 
 
 class SWState(NamedTuple):
-    """Padded prognostic fields for one hydrostatic substep."""
+    """Padded prognostic fields for one substep."""
 
     pu: torch.Tensor     # [6, N+1, N, K]
     pv: torch.Tensor     # [6, N, N+1, K]
@@ -152,23 +156,40 @@ class SWState(NamedTuple):
     pd_y: torch.Tensor
     pt_x: torch.Tensor
     pt_y: torch.Tensor
+    pq_x: Optional[torch.Tensor] = None  # tracers [6, N, N, K, T]
+    pq_y: Optional[torch.Tensor] = None
+    # nonhydrostatic prognostics (None in hydrostatic mode)
+    pw_x: Optional[torch.Tensor] = None  # vertical velocity [6, N, N, K]
+    pw_y: Optional[torch.Tensor] = None
+    pz_x: Optional[torch.Tensor] = None  # layer thickness delz > 0
+    pz_y: Optional[torch.Tensor] = None
 
 
-def fill_substep(ops: HaloOps, u, v, delp, pt, chart=None) -> SWState:
-    """Halo-filled substep inputs.  With chart corners the corrected x-fill
-    serves both stencil directions (x- and y-fills agree after it)."""
+def fill_substep(ops: HaloOps, u, v, delp, pt, q=None, w=None, delz=None,
+                 chart=None) -> SWState:
+    """Halo-filled substep inputs; q (per-substep tracers), w and delz
+    (nonhydrostatic) are filled when given.  With chart corners the
+    corrected x-fill serves both stencil directions (x- and y-fills agree
+    after it)."""
     pu, pv = ops.fill_dgrid(u, v)
 
     def fx(a):
+        if a is None:
+            return None
         out = ops.fill(a, "x")
         return chart.apply_scalar(out, "x") if chart is not None else out
 
-    pd_x, pt_x = fx(delp), fx(pt)
-    if chart is not None:
-        pd_y, pt_y = pd_x, pt_x
-    else:
-        pd_y, pt_y = ops.fill(delp, "y"), ops.fill(pt, "y")
-    return SWState(pu=pu, pv=pv, pd_x=pd_x, pd_y=pd_y, pt_x=pt_x, pt_y=pt_y)
+    def fy(a, same):
+        if a is None:
+            return None
+        return same if chart is not None else ops.fill(a, "y")
+
+    pd_x, pt_x, pq_x, pw_x, pz_x = fx(delp), fx(pt), fx(q), fx(w), fx(delz)
+    return SWState(pu=pu, pv=pv, pd_x=pd_x, pd_y=fy(delp, pd_x),
+                   pt_x=pt_x, pt_y=fy(pt, pt_x),
+                   pq_x=pq_x, pq_y=fy(q, pq_x),
+                   pw_x=pw_x, pw_y=fy(w, pw_x),
+                   pz_x=pz_x, pz_y=fy(delz, pz_x))
 
 
 # --------------------------------------------------------------------------
@@ -467,6 +488,9 @@ class SubstepOut(NamedTuple):
     v: torch.Tensor
     delp: torch.Tensor     # interior [6, n, n, K]
     pt: torch.Tensor
+    q: Optional[torch.Tensor]     # per-substep tracers [6, n, n, K, T]
+    w: Optional[torch.Tensor]     # nonhydrostatic: solved w and delz
+    delz: Optional[torch.Tensor]
     mfx: torch.Tensor      # interior mass fluxes
     mfy: torch.Tensor
     uc: torch.Tensor       # interior time-centred C-grid winds
@@ -475,12 +499,19 @@ class SubstepOut(NamedTuple):
     vct_pad: torch.Tensor
     mfx_pad: torch.Tensor
     mfy_pad: torch.Tensor
+    # mid-substep x-order refills of the new state (padded)
+    pd_fill: Optional[torch.Tensor] = None
+    pt_fill: Optional[torch.Tensor] = None
+    pz_fill: Optional[torch.Tensor] = None
 
 
 def transport_part(s: SWState, m: PaddedMetrics, crx, cry, xfx, yfx,
-                   hord_tm: int):
-    """PPM transport of delp and pt (body of dsw_transport).
-    Returns (delp_new, pt_new, mass fluxes)."""
+                   hord: int, advect_tracers: bool, hord_tm: int = 0):
+    """All PPM transport of one substep (body of dsw_transport, and of
+    dsw_tracer per tracer): mass, heat, nonhydrostatic w (mass-weighted)
+    and delz (volume form), tracers.
+    Returns (delp_new, pt_new, w_adv, delz_adv, q_new, mass fluxes)."""
+    hord_tm = hord_tm or hord
     rax = 1.0 / (m.area + ddx(xfx))
     ray = 1.0 / (m.area + ddy(yfx))
     mf = fvtp2d(s.pd_x, s.pd_y, crx, cry, xfx, yfx, m.area, hord=hord_tm,
@@ -491,22 +522,74 @@ def transport_part(s: SWState, m: PaddedMetrics, crx, cry, xfx, yfx,
                 mfx=mf.fx, mfy=mf.fy, rax=rax, ray=ray)
     pt_new = (s.pt_x * s.pd_x
               + (ddx(tf.fx) + ddy(tf.fy)) * m.rarea) * rdelp_new
-    return delp_new, pt_new, mf
+
+    if s.pz_x is not None:
+        wf = fvtp2d(s.pw_x, s.pw_y, crx, cry, xfx, yfx, m.area, hord=hord_tm,
+                    mfx=mf.fx, mfy=mf.fy, rax=rax, ray=ray)
+        w_adv = (s.pw_x * s.pd_x
+                 + (ddx(wf.fx) + ddy(wf.fy)) * m.rarea) * rdelp_new
+        zf = fvtp2d(s.pz_x, s.pz_y, crx, cry, xfx, yfx, m.area, hord=hord_tm,
+                    rax=rax, ray=ray)
+        delz_adv = torch.clamp(
+            s.pz_x + (ddx(zf.fx) + ddy(zf.fy)) * m.rarea, min=1.0)
+    else:
+        w_adv = delz_adv = None
+
+    if s.pq_x is not None and advect_tracers:
+        qs = []
+        for t in range(s.pq_x.shape[-1]):
+            qf = fvtp2d(s.pq_x[..., t], s.pq_y[..., t], crx, cry, xfx, yfx,
+                        m.area, hord=hord, mfx=mf.fx, mfy=mf.fy,
+                        rax=rax, ray=ray)
+            qdp = s.pq_x[..., t] * s.pd_x \
+                + (ddx(qf.fx) + ddy(qf.fy)) * m.rarea
+            qs.append(qdp * rdelp_new)
+        q_new = torch.stack(qs, dim=-1)
+    else:
+        q_new = None
+    return delp_new, pt_new, w_adv, delz_adv, q_new, mf
+
+
+def nh_perturbation_fields(delp_new, pt_new, delz_new, ptop: float):
+    """Backward p', phi' and rho from the solved nonhydrostatic state (the
+    column stage of the nonhydrostatic dsw_wind).  The hydrostatic
+    thickness is the discrete form of nh_solver.hydrostatic_delz
+    (delp R T / p_mid), so both perturbations vanish identically in
+    discrete balance."""
+    pe1 = interfaces_from_delp(delp_new, ptop)
+    pk1 = (pe1 / P00) ** KAPPA
+    peln1 = torch.log(pe1)
+    pkz1 = (pk1[..., 1:] - pk1[..., :-1]) / (
+        KAPPA * (peln1[..., 1:] - peln1[..., :-1]))
+    p_mid1 = 0.5 * (pe1[..., 1:] + pe1[..., :-1])
+    t1 = pt_new * pkz1
+    rho1 = delp_new / (GRAV * torch.clamp(delz_new, min=1.0))
+    pprime = rho1 * RDGAS * t1 - p_mid1
+    dphi_diff = GRAV * delz_new - RDGAS * t1 * delp_new / p_mid1
+    phiprime = rcumsum_k(dphi_diff) - 0.5 * dphi_diff
+    return pprime, phiprime, rho1
 
 
 def wind_part(s: SWState, m: PaddedMetrics, uct, vct, crx, cry, pt_new,
-              pkz, phi_mid, dt: float, hord: int, d2_bg: float,
+              pkz, phi_mid, nh_fields, dt: float, hord: int, d2_bg: float,
               hord_mt: int = 0, vort=None, div_c_in=None,
               vtx_damp: float = 0.0):
-    """D-grid vector-invariant wind update, hydrostatic (body of dsw_wind).
+    """D-grid vector-invariant wind update (body of dsw_wind).
 
-    div_c_in: the exchange-form damping divergence (damping_divergence);
-    None = the in-kernel dual/cell blend over m.div_blend.  vort: the
-    chart-corrected centre vorticity, or None to recompute it.
-    Returns padded (u_new, v_new)."""
+    nh_fields: None, or the cell-centred (pprime, phiprime, rho1) of
+    nh_perturbation_fields.  div_c_in: the exchange-form damping divergence
+    (damping_divergence); None = the in-kernel dual/cell blend over
+    m.div_blend.  vort: the chart-corrected centre vorticity, or None to
+    recompute it.  Returns padded (u_new, v_new)."""
     phi_c = _center_to_corner_w(phi_mid, m)
     pkz_c = _center_to_corner_w(pkz, m)
     pt_c = _center_to_corner_w(pt_new, m)
+    nonhydro = nh_fields is not None
+    if nonhydro:
+        pprime, phiprime, rho1 = nh_fields
+        php_c = _center_to_corner_w(phiprime, m)
+        pp_c = _center_to_corner_w(pprime, m)
+        rho_c = _center_to_corner_w(rho1, m)
 
     ub = _pad_edge(0.5 * (uct[:, :-1, :] + uct[:, 1:, :]), 1)
     vb = _pad_edge(0.5 * (vct[:, :, :-1] + vct[:, :, 1:]), 2)
@@ -539,6 +622,11 @@ def wind_part(s: SWState, m: PaddedMetrics, uct, vct, crx, cry, pt_new,
     pt_u = 0.5 * (pt_c[:, :, 1:] + pt_c[:, :, :-1])
     pgf_x = ((phi_c[:, :, 1:] - phi_c[:, :, :-1])
              + CP_AIR * pt_u * (pkz_c[:, :, 1:] - pkz_c[:, :, :-1])) * m.rdx
+    if nonhydro:
+        rho_u = torch.clamp(0.5 * (rho_c[:, :, 1:] + rho_c[:, :, :-1]),
+                            min=1.0e-8)
+        pgf_x = pgf_x + ((php_c[:, :, 1:] - php_c[:, :, :-1])
+                         + (pp_c[:, :, 1:] - pp_c[:, :, :-1]) / rho_u) * m.rdx
     damp_x = (d2_bg / dt) * m.dx
     ddiv_x = damp_x * (div_c[:, :, 1:] - div_c[:, :, :-1])
 
@@ -566,6 +654,11 @@ def wind_part(s: SWState, m: PaddedMetrics, uct, vct, crx, cry, pt_new,
     pt_v = 0.5 * (pt_c[:, 1:, :] + pt_c[:, :-1, :])
     pgf_y = ((phi_c[:, 1:, :] - phi_c[:, :-1, :])
              + CP_AIR * pt_v * (pkz_c[:, 1:, :] - pkz_c[:, :-1, :])) * m.rdy
+    if nonhydro:
+        rho_v = torch.clamp(0.5 * (rho_c[:, 1:, :] + rho_c[:, :-1, :]),
+                            min=1.0e-8)
+        pgf_y = pgf_y + ((php_c[:, 1:, :] - php_c[:, :-1, :])
+                         + (pp_c[:, 1:, :] - pp_c[:, :-1, :]) / rho_v) * m.rdy
     damp_y = (d2_bg / dt) * m.dy
     ddiv_y = damp_y * (div_c[:, 1:, :] - div_c[:, :-1, :])
 
@@ -581,12 +674,31 @@ def wind_part(s: SWState, m: PaddedMetrics, uct, vct, crx, cry, pt_new,
     return u_new, v_new
 
 
+def nh_vertical_glue(w_adv, delz_adv, pt_new, delp_new, dt: float,
+                     ptop: float):
+    """The vertical glue between the nonhydrostatic transport and the wind
+    update: interface w of the advected layer w (rigid lid and ground),
+    the implicit acoustic solve, delz clamped at 1 m (as the advected
+    delz is: the linearised solve may overshoot under extreme forcing),
+    layer w again.  Returns (w_new, delz_new), padded."""
+    zeros_if = torch.zeros_like(w_adv[..., :1])
+    w_if = torch.cat(
+        [zeros_if, 0.5 * (w_adv[..., :-1] + w_adv[..., 1:]), zeros_if],
+        dim=-1)
+    w_if, delz_new = vertical_acoustic_solve(w_if, delz_adv, pt_new,
+                                             delp_new, dt, ptop)
+    delz_new = torch.clamp(delz_new, min=1.0)
+    return 0.5 * (w_if[..., :-1] + w_if[..., 1:]), delz_new
+
+
 def d_sw_substep(s: SWState, m: PaddedMetrics, ops: HaloOps, dt: float,
                  ptop: float, hord: int = 8, d2_bg: float = 0.015,
-                 hord_mt: int = 0, hord_tm: int = 0, chart=None,
+                 advect_tracers: bool = True, hord_mt: int = 0,
+                 hord_tm: int = 0, chart=None,
                  stag_tabs: Optional[StagResample] = None,
                  vtx_damp: float = 0.0) -> SubstepOut:
-    """One forward-backward hydrostatic acoustic substep on padded fields.
+    """One forward-backward acoustic substep on padded fields;
+    nonhydrostatic when s carries delz (pz_x).
 
     chart: optional ChartCorners.  stag_tabs: when given, the damping
     divergence takes the exchange form; None = the in-kernel blend."""
@@ -606,17 +718,27 @@ def d_sw_substep(s: SWState, m: PaddedMetrics, ops: HaloOps, dt: float,
     cry = vct * dt * m.rdyc
     xfx = uct * dt * m.dy
     yfx = vct * dt * m.dx
-    delp_new, pt_new, mf = transport_part(s, m, crx, cry, xfx, yfx,
-                                          hord_tm or hord)
+    delp_new, pt_new, w_adv, delz_adv, q_new, mf = transport_part(
+        s, m, crx, cry, xfx, yfx, hord, advect_tracers, hord_tm=hord_tm)
 
     # the transport exhausts the inbound halo: refill delp/pt before the
     # backward PGF reads them at the corners
     delp_f = refill(delp_new[islice])
     pt_f = refill(pt_new[islice])
+    nonhydro = s.pz_x is not None
+    if nonhydro:
+        # the implicit vertical solve, then the backward nonhydrostatic
+        # pressure force from the solved fields
+        w_new, delz_new = nh_vertical_glue(w_adv, delz_adv, pt_new,
+                                           delp_new, dt, ptop)
+        delz_f = refill(delz_new[islice])
+        nh_fields = nh_perturbation_fields(delp_f, pt_f, delz_f, ptop)
+    else:
+        w_new = delz_new = delz_f = nh_fields = None
     pkz, phi_mid = _hydrostatic_fields(delp_f, pt_f, ptop)
 
     u_new, v_new = wind_part(s, m, uct, vct, crx, cry, pt_f, pkz,
-                             phi_mid + m.phis, dt, hord, d2_bg,
+                             phi_mid + m.phis, nh_fields, dt, hord, d2_bg,
                              hord_mt=hord_mt,
                              vort=vort_c if chart is not None else None,
                              div_c_in=div_cg, vtx_damp=vtx_damp)
@@ -625,9 +747,13 @@ def d_sw_substep(s: SWState, m: PaddedMetrics, ops: HaloOps, dt: float,
         v=v_new[:, h:h + ny, h:h + nx + 1],
         delp=delp_new[islice],
         pt=pt_new[islice],
+        q=None if q_new is None else q_new[islice],
+        w=None if w_new is None else w_new[islice],
+        delz=None if delz_new is None else delz_new[islice],
         mfx=mf.fx[:, h:h + ny, h:h + nx + 1],
         mfy=mf.fy[:, h:h + ny + 1, h:h + nx],
         uc=uct[:, h:h + ny, h:h + nx + 1],
         vc=vct[:, h:h + ny + 1, h:h + nx],
         uct_pad=uct, vct_pad=vct, mfx_pad=mf.fx, mfy_pad=mf.fy,
+        pd_fill=delp_f, pt_fill=pt_f, pz_fill=delz_f,
     )

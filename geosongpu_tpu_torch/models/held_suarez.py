@@ -7,11 +7,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from geosongpu_tpu.core.config import DycoreConfig
-from geosongpu_tpu.core.grid import Grid, build_grid
-from geosongpu_tpu.core.vertical import hybrid_coordinate, sigma_coordinate
-
+from ..core.config import DycoreConfig
+from ..core.grid import Grid, build_grid
 from ..core.state import DycoreState, init_state
+from ..core.vertical import hybrid_coordinate, sigma_coordinate
 from ..dycore.fv_dynamics import (DycoreContext, _make_remap, build_context,
                                   fv_dynamics_step)
 from ..parallel.halo import symmetrize_shared_edges

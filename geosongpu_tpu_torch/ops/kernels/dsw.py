@@ -1,8 +1,11 @@
 """The fused substep kernels as hand-written CUDA (csrc/dsw_*.cu).
 
-Counterparts of the five Pallas call sites of geosongpu_tpu/dycore/
-sw_pallas.py on the hydrostatic z_tracer path: dsw_csw1, dsw_csw2,
-dsw_transport and dsw_wind (d_sw_substep_pallas k1-k4) and dsw_tracer_acc
+Counterparts of the Pallas call sites of geosongpu_tpu/dycore/
+sw_pallas.py: dsw_csw1, dsw_csw2, dsw_transport (hydrostatic, and
+nonhydrostatic with w and delz), dsw_tracer and dsw_wind
+(d_sw_substep_pallas k1-k4 and k3b; dsw_wind with either damping form and
+with the nonhydrostatic PGF terms), dsw_nh_pert (_nh_pert_kernel, the
+column stage the nonhydrostatic dsw_wind runs first) and dsw_tracer_acc
 (tracer_interval_advect_pallas).  For each: the wrapper, its `launches`
 counter and its plain PyTorch version `<name>_plain`, which has the
 wrapper's signature and composes the port's dycore/sw.py functions.
@@ -22,10 +25,10 @@ import ctypes
 
 import torch
 
-from geosongpu_tpu.core.grid import CP_AIR, KAPPA
-
+from ...core.grid import CP_AIR, GRAV, KAPPA, RDGAS
 from ...dycore.sw import (P00, PaddedMetrics, SWState, _hydrostatic_fields,
-                          c_sw_part1, c_sw_part2, transport_part, wind_part)
+                          c_sw_part1, c_sw_part2, nh_perturbation_fields,
+                          transport_part, wind_part)
 from ..fvtp2d import ddx, ddy, fvtp2d
 from .build import load_library
 
@@ -83,23 +86,46 @@ def dsw_csw2_plain(uc, vc, delp_h, pt_h, ke, vort, m: PaddedMetrics,
 
 
 def dsw_transport_plain(pd_x, pd_y, pt_x, pt_y, uct, vct, m: PaddedMetrics,
-                        dt: float, hord: int):
-    """-> (delp_new, pt_new, mfx, mfy), all padded."""
+                        dt: float, hord: int, nh=None):
+    """-> (delp_new, pt_new, mfx, mfy), all padded; with nh = (pw_x, pw_y,
+    pz_x, pz_y) also (w_adv, delz_adv)."""
     crx, cry, xfx, yfx = courant(uct, vct, m, dt)
-    s = SWState(pu=None, pv=None, pd_x=pd_x, pd_y=pd_y, pt_x=pt_x, pt_y=pt_y)
-    delp_new, pt_new, mf = transport_part(s, m, crx, cry, xfx, yfx, hord)
-    return delp_new, pt_new, mf.fx, mf.fy
+    pw_x, pw_y, pz_x, pz_y = nh if nh is not None else (None,) * 4
+    s = SWState(pu=None, pv=None, pd_x=pd_x, pd_y=pd_y, pt_x=pt_x, pt_y=pt_y,
+                pw_x=pw_x, pw_y=pw_y, pz_x=pz_x, pz_y=pz_y)
+    delp_new, pt_new, w_adv, delz_adv, _, mf = transport_part(
+        s, m, crx, cry, xfx, yfx, hord, False)
+    outs = (delp_new, pt_new, mf.fx, mf.fy)
+    return outs + (w_adv, delz_adv) if nh is not None else outs
+
+
+def dsw_tracer_plain(qx, qy, pd_x, delp_new, uct, vct, mfx, mfy,
+                     m: PaddedMetrics, dt: float, hord: int):
+    """One tracer of one substep with the substep's mass fluxes
+    (sw_pallas.py k3b, :587-593) -> (q_new,), padded."""
+    crx, cry, xfx, yfx = courant(uct, vct, m, dt)
+    qf = fvtp2d(qx, qy, crx, cry, xfx, yfx, m.area, hord=hord, mfx=mfx,
+                mfy=mfy)
+    return ((qx * pd_x + (ddx(qf.fx) + ddy(qf.fy)) * m.rarea) / delp_new,)
+
+
+def dsw_nh_pert_plain(delp_f, pt_f, delz_f, ptop: float):
+    """-> (pprime, phiprime, rho1) of the solved nonhydrostatic state."""
+    return nh_perturbation_fields(delp_f, pt_f, delz_f, ptop)
 
 
 def dsw_wind_plain(pu, pv, uct, vct, delp_f, pt_f, vort, div_c,
                    m: PaddedMetrics, ptop: float, dt: float, hord_mt: int,
-                   d2_bg: float, vtx_damp: float = 0.0):
-    """-> padded (u_new, v_new)."""
+                   d2_bg: float, vtx_damp: float = 0.0, delz_f=None):
+    """-> padded (u_new, v_new).  div_c=None: the blend damping form;
+    delz_f: the refilled delz of the nonhydrostatic substep."""
     pkz, phi = _hydrostatic_fields(delp_f, pt_f, ptop)
+    nh = None if delz_f is None else dsw_nh_pert_plain(delp_f, pt_f, delz_f,
+                                                       ptop)
     crx, cry, _, _ = courant(uct, vct, m, dt)
     s = SWState(pu=pu, pv=pv, pd_x=None, pd_y=None, pt_x=None, pt_y=None)
-    return wind_part(s, m, uct, vct, crx, cry, pt_f, pkz, phi + m.phis, dt,
-                     hord_mt, d2_bg, hord_mt=hord_mt, vort=vort,
+    return wind_part(s, m, uct, vct, crx, cry, pt_f, pkz, phi + m.phis, nh,
+                     dt, hord_mt, d2_bg, hord_mt=hord_mt, vort=vort,
                      div_c_in=div_c, vtx_damp=vtx_damp)
 
 
@@ -254,61 +280,126 @@ def dsw_csw2(uc, vc, delp_h, pt_h, ke, vort, m: PaddedMetrics, ptop: float,
 
 
 def dsw_transport(pd_x, pd_y, pt_x, pt_y, uct, vct, m: PaddedMetrics,
-                  dt: float, hord: int):
+                  dt: float, hord: int, nh=None):
     """PPM transport of delp and pt (sw_pallas.py k3)
-    -> padded (delp_new, pt_new, mfx, mfy)."""
+    -> padded (delp_new, pt_new, mfx, mfy).  nh: the nonhydrostatic
+    fills (pw_x, pw_y, pz_x, pz_y); w is then transported mass-weighted
+    like pt and delz in volume form like delp, clamped at 1 m, and the
+    result gains (w_adv, delz_adv)."""
     dev = _device("dsw_transport: pd_x", pd_x)
     if dev.type == "cpu":
         return dsw_transport_plain(pd_x, pd_y, pt_x, pt_y, uct, vct, m, dt,
-                                   hord)
+                                   hord, nh)
     _hord("dsw_transport", hord)
     F, Ny, Nx, K = _grid("dsw_transport: pd_x", pd_x)
     c, xi, yi = (F, Ny, Nx, K), (F, Ny, Nx + 1, K), (F, Ny + 1, Nx, K)
-    _check("dsw_transport", dev, [("pd_x", pd_x, c), ("pd_y", pd_y, c),
-                                  ("pt_x", pt_x, c), ("pt_y", pt_y, c),
-                                  ("uct", uct, xi), ("vct", vct, yi)])
+    named = [("pd_x", pd_x, c), ("pd_y", pd_y, c), ("pt_x", pt_x, c),
+             ("pt_y", pt_y, c), ("uct", uct, xi), ("vct", vct, yi)]
+    if nh is not None:
+        named += list(zip(("pw_x", "pw_y", "pz_x", "pz_y"), nh, (c,) * 4))
+    _check("dsw_transport", dev, named)
     ms = _metrics("dsw_transport", m, F, Ny, Nx, dev)
     e = lambda shape: torch.empty(shape, dtype=torch.float32, device=dev)
     scratch = (e(c), e(c), e(c), e(c), e(xi), e(yi))
     outs = (e(c), e(c), e(xi), e(yi))
-    _launch("dsw_transport", "Piiii" + "P" * 6 + "fi" + "P" * 10, dev,
+    # the nonhydrostatic pass reuses the scratch of the first; delz needs
+    # its own pair of flux arrays
+    nh_ptrs = [None] * 8
+    if nh is not None:
+        nh_out = (e(xi), e(yi), e(c), e(c))
+        nh_ptrs = _ptrs(*nh, *nh_out)
+        outs = outs + nh_out[2:]
+    _launch("dsw_transport", "Piiii" + "P" * 6 + "fi" + "P" * 18, dev,
             [ctypes.addressof(ms), F, Ny, Nx, K,
              *_ptrs(pd_x, pd_y, pt_x, pt_y, uct, vct), dt, hord,
-             *_ptrs(*scratch, *outs)])
+             *_ptrs(*scratch, *outs[:4]), *nh_ptrs])
     dsw_transport.launches += 1
+    return outs
+
+
+def dsw_tracer(qx, qy, pd_x, delp_new, uct, vct, mfx, mfy, m: PaddedMetrics,
+               dt: float, hord: int):
+    """One tracer of one substep, advected with the substep's winds and
+    mass fluxes and divided by the transported delp (sw_pallas.py k3b)
+    -> (q_new,), padded."""
+    dev = _device("dsw_tracer: pd_x", pd_x)
+    if dev.type == "cpu":
+        return dsw_tracer_plain(qx, qy, pd_x, delp_new, uct, vct, mfx, mfy,
+                                m, dt, hord)
+    _hord("dsw_tracer", hord)
+    F, Ny, Nx, K = _grid("dsw_tracer: pd_x", pd_x)
+    c, xi, yi = (F, Ny, Nx, K), (F, Ny, Nx + 1, K), (F, Ny + 1, Nx, K)
+    _check("dsw_tracer", dev, [("qx", qx, c), ("qy", qy, c),
+                               ("pd_x", pd_x, c), ("delp_new", delp_new, c),
+                               ("uct", uct, xi), ("vct", vct, yi),
+                               ("mfx", mfx, xi), ("mfy", mfy, yi)])
+    ms = _metrics("dsw_tracer", m, F, Ny, Nx, dev)
+    e = lambda shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    scratch = (e(c), e(c), e(xi), e(yi))
+    q_new = e(c)
+    _launch("dsw_tracer", "Piiii" + "P" * 8 + "fi" + "P" * 5, dev,
+            [ctypes.addressof(ms), F, Ny, Nx, K,
+             *_ptrs(qx, qy, pd_x, delp_new, uct, vct, mfx, mfy), dt, hord,
+             *_ptrs(*scratch, q_new)])
+    dsw_tracer.launches += 1
+    return (q_new,)
+
+
+def dsw_nh_pert(delp_f, pt_f, delz_f, ptop: float):
+    """p', phi' and rho of the solved nonhydrostatic state, by column
+    (sw_pallas.py _nh_pert_kernel) -> (pprime, phiprime, rho1)."""
+    dev = _device("dsw_nh_pert: delp_f", delp_f)
+    if dev.type == "cpu":
+        return dsw_nh_pert_plain(delp_f, pt_f, delz_f, ptop)
+    F, Ny, Nx, K = c = _grid("dsw_nh_pert: delp_f", delp_f)
+    _check("dsw_nh_pert", dev, [("delp_f", delp_f, c), ("pt_f", pt_f, c),
+                                ("delz_f", delz_f, c)])
+    outs = tuple(torch.empty(c, dtype=torch.float32, device=dev)
+                 for _ in range(3))
+    _launch("dsw_nh_pert", "iiii" + "PPP" + "fffff" + "PPP", dev,
+            [F, Ny, Nx, K, *_ptrs(delp_f, pt_f, delz_f), ptop, P00, KAPPA,
+             GRAV, RDGAS, *_ptrs(*outs)])
+    dsw_nh_pert.launches += 1
     return outs
 
 
 def dsw_wind(pu, pv, uct, vct, delp_f, pt_f, vort, div_c, m: PaddedMetrics,
              ptop: float, dt: float, hord_mt: int, d2_bg: float,
-             vtx_damp: float = 0.0):
+             vtx_damp: float = 0.0, delz_f=None):
     """Column integral of the refilled state and the D-grid wind update
     (sw_pallas.py k4) -> padded (u_new, v_new).  div_c: the exchange-form
-    damping divergence [F, Ny+1, Nx+1, K]."""
-    if div_c is None:
-        raise NotImplementedError(
-            "dsw_wind: the blend damping form (div_c=None, used above npx "
-            "96) is not ported (ROADMAP queue A item 8)")
+    damping divergence [F, Ny+1, Nx+1, K], or None for the blend form: a
+    stage of the kernel then computes the dual/cell blend from pu, pv,
+    uct and vct.  delz_f: the refilled delz of the nonhydrostatic substep;
+    dsw_nh_pert then runs first and the PGF takes its p', phi' and rho."""
     dev = _device("dsw_wind: delp_f", delp_f)
     if dev.type == "cpu":
         return dsw_wind_plain(pu, pv, uct, vct, delp_f, pt_f, vort, div_c, m,
-                              ptop, dt, hord_mt, d2_bg, vtx_damp)
+                              ptop, dt, hord_mt, d2_bg, vtx_damp, delz_f)
     _hord("dsw_wind", hord_mt)
     F, Ny, Nx, K = _grid("dsw_wind: delp_f", delp_f)
     c, xi, yi = (F, Ny, Nx, K), (F, Ny, Nx + 1, K), (F, Ny + 1, Nx, K)
-    _check("dsw_wind", dev, [("pu", pu, yi), ("pv", pv, xi),
-                             ("uct", uct, xi), ("vct", vct, yi),
-                             ("delp_f", delp_f, c), ("pt_f", pt_f, c),
-                             ("vort", vort, c),
-                             ("div_c", div_c, (F, Ny + 1, Nx + 1, K))])
+    cn = (F, Ny + 1, Nx + 1, K)
+    named = [("pu", pu, yi), ("pv", pv, xi), ("uct", uct, xi),
+             ("vct", vct, yi), ("delp_f", delp_f, c), ("pt_f", pt_f, c),
+             ("vort", vort, c)]
+    if div_c is not None:
+        named.append(("div_c", div_c, cn))
+    _check("dsw_wind", dev, named)
     ms = _metrics("dsw_wind", m, F, Ny, Nx, dev)
     e = lambda shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    # nh_t stays referenced until the launch below is enqueued
+    nh_t = () if delz_f is None else dsw_nh_pert(delp_f, pt_f, delz_f, ptop)
+    nh = _ptrs(*nh_t) if nh_t else [None] * 3
+    div = div_c if div_c is not None else e(cn)
     pkz, phi, u_new, v_new = e(c), e(c), e(yi), e(xi)
-    _launch("dsw_wind", "Piiii" + "P" * 8 + "ffff" + "fiffi" + "PPPP", dev,
+    _launch("dsw_wind", "Piiii" + "P" * 8 + "i" + "PPP" + "ffff" + "fiffi"
+            + "PPPP", dev,
             [ctypes.addressof(ms), F, Ny, Nx, K,
-             *_ptrs(pu, pv, uct, vct, delp_f, pt_f, vort, div_c), ptop, P00,
-             KAPPA, CP_AIR, dt, hord_mt, d2_bg / dt, vtx_damp / dt,
-             int(vtx_damp > 0.0), *_ptrs(pkz, phi, u_new, v_new)])
+             *_ptrs(pu, pv, uct, vct, delp_f, pt_f, vort, div),
+             int(div_c is None), *nh, ptop, P00, KAPPA, CP_AIR, dt, hord_mt,
+             d2_bg / dt, vtx_damp / dt, int(vtx_damp > 0.0),
+             *_ptrs(pkz, phi, u_new, v_new)])
     dsw_wind.launches += 1
     return u_new, v_new
 
@@ -340,6 +431,7 @@ def dsw_tracer_acc(qx, qy, pd_x, uacc, vacc, mfx, mfy, m: PaddedMetrics,
     return outs
 
 
-KERNELS = (dsw_csw1, dsw_csw2, dsw_transport, dsw_wind, dsw_tracer_acc)
+KERNELS = (dsw_csw1, dsw_csw2, dsw_transport, dsw_wind, dsw_tracer_acc,
+           dsw_tracer, dsw_nh_pert)
 for _k in KERNELS:
     _k.launches = 0

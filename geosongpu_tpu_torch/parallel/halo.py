@@ -5,8 +5,8 @@ The numpy gather tables of `core.topology.halo_spec` are applied with
 table form the reference's concat recipes were fitted to and verified
 against, so the padded arrays are bit-identical to the reference's.
 
-Not ported yet (not on the Held-Suarez path): `fill_vector` and
-`fill_cgrid` (ROADMAP queue A item 8).
+Not here: `fill_vector` and `fill_cgrid`, which no path of the port's
+models calls (ROADMAP queue A item 13, with the cross-device fills).
 """
 from __future__ import annotations
 
@@ -15,8 +15,7 @@ from dataclasses import dataclass
 
 import torch
 
-from geosongpu_tpu.core.topology import NFACES, edge_twins, halo_spec
-
+from ..core.topology import NFACES, edge_twins, halo_spec
 from ..device import to_torch
 
 

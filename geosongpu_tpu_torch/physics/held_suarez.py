@@ -10,8 +10,7 @@ from typing import NamedTuple
 
 import torch
 
-from geosongpu_tpu.core.grid import KAPPA, Grid
-
+from ..core.grid import KAPPA, Grid
 from ..device import to_torch
 from ..ops.vertical import interfaces_from_delp
 

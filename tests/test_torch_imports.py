@@ -1,34 +1,35 @@
-"""The port stands on its own: no jax anywhere in geosongpu_tpu_torch, only
-the reference's numpy-only modules, and no silent CPU fallback for the
-kernel path.  The scan reads the sources with `ast`; it cannot look at
-sys.modules, because jax may already be loaded when the interpreter
-starts."""
+"""The port stands on its own: no jax and nothing of the JAX package
+anywhere in geosongpu_tpu_torch or chip_smoke.py (the port keeps its own
+copies of the numpy core modules, tests/test_torch_core.py), and no silent
+CPU fallback for the kernel path.  The scan reads the sources with `ast`;
+it cannot look at sys.modules, because jax may already be loaded when the
+interpreter starts."""
 import ast
 import dataclasses
+import importlib.util
 import pathlib
+import re
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from geosongpu_tpu.core.config import DycoreConfig  # noqa: E402
+from geosongpu_tpu_torch.core.config import DycoreConfig  # noqa: E402
 
-PKG = pathlib.Path(__file__).resolve().parents[1] / "geosongpu_tpu_torch"
-ALLOWED = {
-    "geosongpu_tpu.core.config",
-    "geosongpu_tpu.core.topology",
-    "geosongpu_tpu.core.grid",
-    "geosongpu_tpu.core.vertical",
-    "geosongpu_tpu.core.chart_corners",
-}
-SOURCES = sorted(PKG.rglob("*.py"))
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "geosongpu_tpu_torch"
+ALLOWED = set()   # modules of the JAX package the port may import: none
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_modules(path: pathlib.Path):
     """(lineno, module) for every absolute import in the file; relative
     imports are checked not to leave the package."""
-    depth = len(path.relative_to(PKG).parts) - 1   # packages below the root
+    if PKG in path.parents:
+        depth = len(path.relative_to(PKG).parts) - 1   # packages below PKG
+    else:
+        depth = -1                                     # a script: none at all
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
             for alias in node.names:
@@ -43,20 +44,24 @@ def _imported_modules(path: pathlib.Path):
 
 
 def test_sources_found():
-    names = {p.relative_to(PKG).as_posix() for p in SOURCES}
-    assert {"device.py", "ops/kernels/remap.py", "dycore/sw.py",
-            "models/held_suarez.py", "cli.py"} <= names
+    names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
+    assert {"geosongpu_tpu_torch/" + n for n in (
+        "device.py", "ops/kernels/remap.py", "dycore/sw.py",
+        "dycore/nh_solver.py", "core/grid.py", "core/topology.py",
+        "core/config.py", "core/vertical.py", "models/held_suarez.py",
+        "cli.py")} | {"chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,
-                         ids=lambda p: p.relative_to(PKG).as_posix())
+                         ids=lambda p: p.relative_to(PKG).as_posix()
+                         if PKG in p.parents else p.name)
 def test_no_jax_and_only_numpy_reference_modules(path):
     for lineno, mod in _imported_modules(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib"), f"{path}:{lineno} imports {mod}"
         if top == "geosongpu_tpu":
             ok = any(mod == a or mod.startswith(a + ".") for a in ALLOWED)
-            assert ok, f"{path}:{lineno} imports {mod} (not numpy-only)"
+            assert ok, f"{path}:{lineno} imports {mod} (the JAX package)"
 
 
 def _no_cuda_here():
@@ -100,12 +105,8 @@ def test_wrapper_on_cpu_runs_plain_version_and_counts_nothing():
 
 @pytest.mark.parametrize("change", [
     {"pallas_kt": 8},           # TPU vertical tiling
-    {"hydrostatic": False},
-    {"z_tracer": False},
     {"overlap_fills": True},
     {"rim_split": True},
-    {"damping_exchange": "blend"},
-    {"npx": 192},               # auto -> the blend form above npx 96
 ])
 def test_unported_options_raise(change):
     from geosongpu_tpu_torch.dycore.fv_dynamics import check_supported
@@ -115,9 +116,80 @@ def test_unported_options_raise(change):
         check_supported(cfg)
 
 
+@pytest.mark.parametrize("change", [
+    {"hydrostatic": False},
+    {"z_tracer": False},
+    {"damping_exchange": "blend"},
+    {"npx": 192},               # auto -> the blend form above npx 96
+])
+def test_newly_supported_options(change):
+    """Options that were refused until their kernels existed: the check
+    passes at the option's own size, and a step runs at c8-L4 (the blend
+    form is set explicitly there: "auto" only takes it above npx 96)."""
+    from geosongpu_tpu_torch.dycore.fv_dynamics import (_use_exchange,
+                                                        check_supported)
+    from geosongpu_tpu_torch.models.held_suarez import build_model
+
+    cfg = dataclasses.replace(DycoreConfig(npx=12, npz=8), **change)
+    check_supported(cfg)
+    if change.get("npx") == 192:
+        assert not _use_exchange(cfg)
+        change = {"damping_exchange": "blend"}
+    small = dataclasses.replace(
+        DycoreConfig(npx=8, npz=4, dt=1200.0, n_split=2, pallas_dycore=True),
+        **change)
+    model = build_model(small, torch.device("cpu"))
+    s = model.step(model.init(perturb=0.5))
+    s.check_f32()
+    for f in ("u", "v", "delp", "pt", "q", "w", "delz"):
+        assert bool(getattr(s, f).isfinite().all()), f
+    assert float(s.u.abs().max()) > 0.0
+    if not small.hydrostatic:
+        assert float(s.delz.min()) > 1.0 and float(s.w.abs().max()) > 0.0
+
+
 def test_main_path_config_is_supported():
     from geosongpu_tpu_torch.cli import PRESETS
     from geosongpu_tpu_torch.dycore.fv_dynamics import check_supported
 
-    check_supported(PRESETS["held_suarez_c48_l72"])
-    check_supported(PRESETS["held_suarez_c48_l72_fused"])
+    assert sorted(PRESETS) == ["held_suarez_c192_l72_fused",
+                               "held_suarez_c48_l72",
+                               "held_suarez_c48_l72_fused",
+                               "held_suarez_c48_l72_nh_fused"]
+    for cfg in PRESETS.values():
+        assert type(cfg) is DycoreConfig
+        check_supported(cfg)
+
+
+def _metric_uses(name: str):
+    """The PaddedMetrics fields a csrc file reads: its met(m, X, ...) uses."""
+    text = (PKG / "csrc" / name).read_text()
+    return {x.lower() for x in re.findall(r"met\(m, ([A-Z0-9_]+),", text)}
+
+
+def test_chip_smoke_counts_only_the_metrics_a_kernel_reads():
+    """chip_smoke.py's bound counts, of the 36 metric arrays, those in its
+    METRICS_READ: per kernel, over all its forms and dsw_wind's optional
+    rotational damping, that is every field its own source reads, and
+    nothing beyond what that source and the shared stages of
+    dsw_common.cuh read."""
+    from geosongpu_tpu_torch.dycore.sw import PaddedMetrics
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert set(smoke.METRICS_READ) == set(smoke.OPS_PER_POINT)
+    shared = _metric_uses("dsw_common.cuh")
+    for kernel, (source, _, _) in smoke.KERNELS.items():
+        forms = [k for k in smoke.METRICS_READ if k.split()[0] == kernel]
+        assert forms, kernel
+        named = set().union(*(smoke.METRICS_READ[k] for k in forms))
+        assert named <= set(PaddedMetrics._fields), kernel
+        if kernel == "dsw_wind":
+            named |= set(smoke.VTX_METRICS)
+        own = _metric_uses(source)
+        assert own <= named, (kernel, sorted(own - named))
+        assert named <= own | shared, (kernel, sorted(named - own - shared))
+    assert not smoke.METRICS_READ["dsw_nh_pert"]
+    assert "div_blend" not in smoke.METRICS_READ["dsw_wind"]

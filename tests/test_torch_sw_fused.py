@@ -27,8 +27,19 @@ tests/test_torch_sw.py (3 K of pt noise, 2 steps):
   package's own figure: the PPM edge weights 7/12 and 1/12 are not exact
   in f32, so a constant moves by up to 2 ulp);
 * on the CPU every wrapper is its plain version and no launch counter
-  moves.
+  moves;
+* the blend damping form (stag_tabs=None: dsw_wind computes the damping
+  divergence itself), the nonhydrostatic substep, the per-substep tracers
+  (dsw_tracer) and both together, each against
+  d_sw_substep_pallas(interpret=True) in the same mode, every field of
+  SubstepOut: the gates above, q, delz and the refills at 1e-4 relative,
+  w like the winds.  In interpret mode the JAX substep takes the glue form
+  nh_perturbation_fields where the compiled TPU kernel runs
+  _nh_pert_kernel (sw_pallas.py:508); tests/test_torch_nh.py holds the
+  port to both.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -36,19 +47,20 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
-from geosongpu_tpu.core.config import DycoreConfig  # noqa: E402
+from geosongpu_tpu.core.config import DycoreConfig as JaxConfig  # noqa: E402
 from geosongpu_tpu.dycore import sw as jsw  # noqa: E402
 from geosongpu_tpu.dycore import sw_pallas as jswp  # noqa: E402
 from geosongpu_tpu.models.held_suarez import build_model  # noqa: E402
-from geosongpu_tpu_torch.dycore import fv_dynamics as tfv  # noqa: E402
+from geosongpu_tpu_torch.core.config import DycoreConfig  # noqa: E402
 from geosongpu_tpu_torch.dycore import sw as tsw  # noqa: E402
 from geosongpu_tpu_torch.dycore.sw_fused import (  # noqa: E402
     d_sw_substep_fused, tracer_interval_advect)
+from geosongpu_tpu_torch.models import held_suarez as tmodel  # noqa: E402
 from geosongpu_tpu_torch.ops.kernels import dsw  # noqa: E402
 
 CPU = torch.device("cpu")
-CFG = DycoreConfig(npx=12, npz=8, dt=1200.0, n_split=2, hord_tm=6,
-                   pallas_dycore=True)
+KW = dict(npx=12, npz=8, dt=1200.0, n_split=2, hord_tm=6, pallas_dycore=True)
+CFG = DycoreConfig(**KW)
 DT = CFG.dt / CFG.n_split
 GATE = 1e-4
 WIND_ATOL = 2e-3
@@ -57,7 +69,7 @@ FLUXES = ("mfx", "mfy", "mfx_pad", "mfy_pad")
 
 
 def _t(a):
-    return torch.from_numpy(np.array(a))
+    return None if a is None else torch.from_numpy(np.array(a))
 
 
 def _within(name, ref, got, rtol=GATE, atol=0.0):
@@ -71,10 +83,7 @@ def _within(name, ref, got, rtol=GATE, atol=0.0):
 
 @pytest.fixture(scope="module")
 def models():
-    jm = build_model(CFG)
-    ctx = tfv.build_context(CFG, jm.grid, np.asarray(jm.ctx.ak),
-                            np.asarray(jm.ctx.bk), CPU)
-    return jm, ctx
+    return build_model(JaxConfig(**KW)), tmodel.build_model(CFG, CPU).ctx
 
 
 @pytest.fixture(scope="module")
@@ -138,12 +147,18 @@ def _port_args(name, s, chain, m):
         return (uc, vc, delp_h, pt_h, ke, t("vort"), m, CFG.ptop, 0.5 * DT)
     if name == "dsw_transport":
         return (s.pd_x, s.pd_y, s.pt_x, s.pt_y, uct, vct, m, DT, CFG.hord_tm)
+    if name == "dsw_nh_pert":
+        # any positive thickness will do for a wrapper check
+        return (t("delp_f"), t("pt_f"), t("delp_f") * 0.08, CFG.ptop)
     if name == "dsw_wind":
         return (s.pu, s.pv, uct, vct, t("delp_f"), t("pt_f"), t("vort"),
                 t("div_c"), m, CFG.ptop, DT, CFG.hord_mt or CFG.hord,
                 CFG.d2_bg, 0.0)
     qx = s.pt_x / 300.0
     mfx, mfy = (_t(a) for a in chain["transport"][2:])
+    if name == "dsw_tracer":
+        return (qx, qx, s.pd_x, _t(chain["transport"][0]), uct, vct, mfx,
+                mfy, m, DT, CFG.hord)
     return (qx, qx, s.pd_x, uct, vct, mfx, mfy, m, DT, CFG.hord)
 
 
@@ -255,10 +270,119 @@ def test_cpu_wrapper_runs_plain_and_counts_nothing(models, filled_state,
         assert torch.equal(g, w)
 
 
-def test_blend_damping_form_is_refused(models, filled_state, chain):
-    _, ctx = models
+def test_blend_damping_form_matches_reference(models, filled_state, chain):
+    """With div_c=None the wrapper takes the blend damping form, which
+    differs from the exchange form and agrees with the reference's wind_part
+    in the blend form (the wind gate, less the two outermost rings)."""
+    jm, ctx = models
     args = list(_port_args("dsw_wind", _torch_state(filled_state), chain,
                            ctx.metrics))
+    exchange = dsw.dsw_wind(*args)
     args[7] = None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dsw.dsw_wind(*args)
+    got = dsw.dsw_wind(*args)
+    m = jm.ctx.metrics
+    uct, vct = chain["csw2"]
+    pkz, phi = jsw._hydrostatic_fields(chain["delp_f"], chain["pt_f"],
+                                       CFG.ptop)
+    ref = jsw.wind_part(filled_state, m, uct, vct, uct * DT * m.rdxc,
+                        vct * DT * m.rdyc, chain["pt_f"], pkz, phi + m.phis,
+                        None, DT, CFG.hord, CFG.d2_bg, hord_mt=CFG.hord_mt,
+                        vort=chain["vort"], div_c_in=None)
+    for name, r, g, e in zip(("u", "v"), ref, got, exchange):
+        _within(name, np.asarray(r)[:, 2:-2, 2:-2], g[:, 2:-2, 2:-2],
+                atol=WIND_ATOL)
+        assert float((g - e).abs().max()) > 0.0, name
+
+
+# ---- the blend form, the nonhydrostatic substep, per-substep tracers -------
+
+NH_KW = dict(KW, ntracers=1, hydrostatic=False, z_tracer=False)
+MODES = {   # mode -> (nonhydrostatic, per-substep tracers, exchange form)
+    "blend": (False, False, False),
+    "nh": (True, False, True),
+    "tracers": (False, True, True),
+    "nh+tracers": (True, True, True),
+    "nh+tracers+blend": (True, True, False),
+}
+
+
+@pytest.fixture(scope="module")
+def nh_models():
+    return (build_model(JaxConfig(**NH_KW)),
+            tmodel.build_model(DycoreConfig(**NH_KW), CPU).ctx)
+
+
+@pytest.fixture(scope="module")
+def nh_state(nh_models):
+    jm, _ = nh_models
+    s = jm.init(perturb=3.0)
+    rng = np.random.default_rng(5)
+    q = (1.0 + 0.2 * rng.random(s.q.shape)).astype(np.float32)
+    s = dataclasses.replace(s, q=jnp.asarray(q))
+    for _ in range(2):
+        s = jm.step_fn(s)
+    return s
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_fused_substep_modes_match_jax_pallas(nh_models, nh_state, mode):
+    nonhydro, tracers, exchange = MODES[mode]
+    jm, ctx = nh_models
+    st = nh_state
+    filled = jsw.fill_substep(
+        jm.ctx.ops, st.u, st.v, st.delp, st.pt, st.q if tracers else None,
+        w=st.w if nonhydro else None, delz=st.delz if nonhydro else None,
+        chart=jm.ctx.chart)
+    common = dict(hord=CFG.hord, d2_bg=CFG.d2_bg, advect_tracers=tracers,
+                  hord_mt=CFG.hord_mt, hord_tm=CFG.hord_tm)
+    ref = jswp.d_sw_substep_pallas(
+        filled, jm.ctx.metrics, jm.ctx.ops, DT, CFG.ptop, interpret=True,
+        chart=jm.ctx.chart, stag_tabs=jm.ctx.stag if exchange else None,
+        **common)
+    before = [k.launches for k in dsw.KERNELS]
+    out = d_sw_substep_fused(
+        _torch_state(filled), ctx.metrics, ctx.ops, DT, CFG.ptop,
+        chart=ctx.chart, stag_tabs=ctx.stag if exchange else None, **common)
+    assert [k.launches for k in dsw.KERNELS] == before
+    assert out._fields == ref._fields
+    for f in out._fields:
+        r, g = getattr(ref, f), getattr(out, f)
+        if r is None:
+            assert g is None, f
+            continue
+        r, g = np.asarray(r), g.numpy()
+        if f.endswith("_pad") or f.endswith("_fill"):
+            r, g = r[:, 2:-2, 2:-2], g[:, 2:-2, 2:-2]
+        if f in WINDS or f == "w":
+            _within(f, r, g, atol=WIND_ATOL)
+        elif f in FLUXES:
+            _within(f, r, g, rtol=5e-3)
+        else:
+            _within(f, r, g)
+    assert (out.q is not None) == tracers
+    assert (out.w is not None) == (out.delz is not None) == nonhydro
+
+
+def test_substep_kernel_args_records_the_new_kernels(nh_models, nh_state):
+    """substep_kernel_args hands a kernel check the arguments of every
+    kernel the substep's mode runs, and runs the plain versions itself."""
+    from geosongpu_tpu_torch.dycore.sw_fused import substep_kernel_args
+
+    _, ctx = nh_models
+    st = nh_state
+    s = tsw.fill_substep(ctx.ops, _t(st.u), _t(st.v), _t(st.delp), _t(st.pt),
+                         _t(st.q), w=_t(st.w), delz=_t(st.delz),
+                         chart=ctx.chart)
+    args, out = substep_kernel_args(s, ctx.metrics, ctx.ops, DT, CFG.ptop,
+                                    hord_tm=CFG.hord_tm, chart=ctx.chart,
+                                    stag_tabs=None)
+    assert sorted(args) == ["dsw_csw1", "dsw_csw2", "dsw_nh_pert",
+                            "dsw_tracer", "dsw_transport", "dsw_wind"]
+    assert args["dsw_wind"][7] is None            # the blend form
+    assert args["dsw_wind"][14] is args["dsw_nh_pert"][2]
+    assert len(args["dsw_transport"][9]) == 4     # pw_x, pw_y, pz_x, pz_y
+    ref = d_sw_substep_fused(s, ctx.metrics, ctx.ops, DT, CFG.ptop,
+                             hord_tm=CFG.hord_tm, chart=ctx.chart,
+                             stag_tabs=None)
+    for f in ("u", "v", "delp", "pt", "q", "w", "delz"):
+        assert torch.equal(getattr(out, f), getattr(ref, f)), f
