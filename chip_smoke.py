@@ -20,27 +20,51 @@ on any failure (and when no CUDA device is present).  Phases:
    dsw_csw1, dsw_transport, dsw_tracer and dsw_tracer_acc within 1e-5 of
    max|plain|; dsw_csw2, dsw_wind and dsw_nh_pert within max(1e-4
    max|plain|, 2e-3), for the column-sum order;
-5. the four presets through build_model / init / step, each with every
+5. the seven column-physics kernels (gfdl_microphysics, fill_q2_zero,
+   aer_activation, moist_rad_coup, cup_gf_sh, buoyancy, evap_subl_pdf)
+   against their plain versions, within 1e-5 of max|plain|: on the five
+   datasets of the physics gate (128 x 40, seeds 1000-1004), at a ragged
+   column count (123 x 16), and at the aquaplanet model's 13,824 x 32 -
+   gfdl_microphysics and fill_q2_zero there on the inputs the physics
+   chain hands them after 2 steps from a moist-perturbed state (cloud and
+   rain present), the five others on the gate's sounding at that shape;
+   gfdl_microphysics is also timed at 13,824 x 72 and 221,184 x 72, the
+   column counts of c48-L72 and c192-L72;
+6. the dual-build gate of the physics kernels as a path of its own, with
+   the counts set to 0 before and read after: each primary against its
+   hand kernel over the five datasets, relative RMS <= 1e-4 per variable,
+   every kernel launched exactly five times;
+7. the six presets through build_model / init / step, each with every
    launch count set to 0 just before and read just after: the rest state
    stays at rest (nonhydrostatic: w and p' at rounding level), the steps
    stay finite, mass is conserved, and every kernel launches exactly as
-   often as the path prescribes (per step, PATHS below);
-6. a torch.profiler window of 2 steps of each preset: device busy time,
+   often as the path prescribes (per step, PATHS below); the aquaplanet
+   presets also pass the aquaplanet task's physical gates (vapour in
+   [-1e-6, 0.06], surface pressure in (5e4, 1.2e5) Pa) and moisten;
+8. a torch.profiler window of 2 steps of each preset: device busy time,
    device events per step and the top device kernels;
-7. card against CPU: 3 steps at c12-L8 from one numpy state, the two c48
-   hydrostatic presets, the nonhydrostatic preset and the blend form.
+9. card against CPU: 3 steps at c12-L8 from one numpy state, the two c48
+   hydrostatic presets, the nonhydrostatic preset and the blend form; and
+   the fused aquaplanet preset at c8-L12 from a moist-perturbed state
+   (ql and qr relative to max|qv|).
 
-Phases 3 and 4 print the median time of 20 calls (10 at c192), kernel and
+Phases 3 to 5 print the median time of 20 calls (10 at c192), kernel and
 plain.  The second-to-last line is the kernels JSON object, the last line
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}.  `launches` in that object is the count of
+the fused Held-Suarez path (c192 and nonhydrostatic for those forms), of
+the fused aquaplanet path for gfdl_microphysics and fill_q2_zero, and of
+the gate path for the five kernels only the gate runs.
 
 Each kernel's bound in that object is the larger of two times computed
 here from the call's shapes: every input read and every output written
 once at 3.35 TB/s (of the 36 PaddedMetrics arrays only those the kernel's
 stages read, METRICS_READ), and OPS_PER_POINT operations per output point
-at the card's 67 TFLOP/s of float32 outside the tensor cores.  No single PyTorch
-call computes any of these stencil and column functions, so library_ms is
-null throughout.
+at the card's 67 TFLOP/s of float32 outside the tensor cores; a column
+kernel counts only the arrays its formula reads (aer_activation takes t and
+p and moist_rad_coup and buoyancy take p without reading them).  No single
+PyTorch call computes any of these stencil and column functions - the
+column physics are chains of tens of elementwise operations with a
+recurrence down the column - so library_ms is null throughout.
 """
 import dataclasses
 import importlib.util
@@ -76,16 +100,39 @@ KERNELS = {
                    False),
     "dsw_nh_pert": ("dsw_nh_pert.cu", "geosongpu_tpu/dycore/sw_pallas.py:82",
                     True),
+    "gfdl_microphysics": ("gfdl_microphysics.cu",
+                          "geosongpu_tpu/ops/pallas/microphysics.py:152",
+                          False),
+    "fill_q2_zero": ("fill_q2_zero.cu",
+                     "geosongpu_tpu/ops/pallas/columns.py:99", False),
+    "aer_activation": ("column_kernels.cu",
+                       "geosongpu_tpu/ops/pallas/columns.py:30", False),
+    "moist_rad_coup": ("column_kernels.cu",
+                       "geosongpu_tpu/ops/pallas/columns.py:30", False),
+    "cup_gf_sh": ("column_kernels.cu",
+                  "geosongpu_tpu/ops/pallas/columns.py:30", False),
+    "buoyancy": ("standalone_twins.cu",
+                 "geosongpu_tpu/ops/pallas/standalone_twins.py:85", False),
+    "evap_subl_pdf": ("standalone_twins.cu",
+                      "geosongpu_tpu/ops/pallas/standalone_twins.py:133",
+                      False),
 }
+COLUMN_PHYSICS = list(KERNELS)[8:]
 # Arithmetic of the plain version per output point, each PPM edge counted
 # once per cell (a ppm_flux ~33 operations with the hord-8 limiter, an
 # fvtp2d ~150 per field, a corner interpolation ~15, a column integral ~60
-# with pow and log as 20 each).  Every kernel comes out bound by its bytes.
+# with pow and log as 20 each; gfdl_microphysics 13 exp, 4 pow and a sqrt at
+# 20 each plus ~25 divisions and ~120 other operations; cup_gf_sh one
+# theta_v with a pow and the two interfaces' mixing of two fields).  Every
+# kernel comes out bound by its bytes.
 OPS_PER_POINT = {
     "remap_banded": 250, "dsw_csw1": 80, "dsw_csw2": 170,
     "dsw_transport": 330, "dsw_transport nh": 650, "dsw_wind": 220,
     "dsw_wind blend": 280, "dsw_wind nh": 345, "dsw_tracer_acc": 170,
     "dsw_tracer": 165, "dsw_nh_pert": 70,
+    "gfdl_microphysics": 500, "fill_q2_zero": 6, "aer_activation": 70,
+    "moist_rad_coup": 35, "cup_gf_sh": 60, "buoyancy": 10,
+    "evap_subl_pdf": 80,
 }
 # The PaddedMetrics fields each kernel (and form) reads: the met(m, X, ...)
 # uses of its source and of the csrc/dsw_common.cuh stages it launches
@@ -111,25 +158,42 @@ METRICS_READ = {
     "dsw_tracer_acc": FVTP2D_METRICS + ("rarea",),
     "dsw_tracer": FVTP2D_METRICS + ("rarea",),
     "dsw_nh_pert": (),
+    **{k: () for k in COLUMN_PHYSICS},
 }
 # __global__ stages of csrc/*.cu, as the profiler names them
 PORT_STAGES = ("::csw1(", "::csw2_", "::fv_inner(", "::fv_flux(",
                "::transport_update(", "::nh_transport_update(",
                "::tracer_update(", "::tracer_sub_update(", "::wind_update(",
                "::blend_divergence(", "::hydro_columns(", "::nh_columns(",
-               "::remap_banded_kernel<")
+               "::remap_banded_kernel<", "::gfdl_microphysics_columns(",
+               "::fill_q2_zero_columns(", "::aer_activation_points(",
+               "::moist_rad_coup_points(", "::cup_gf_sh_points(",
+               "::buoyancy_points(", "::evap_subl_pdf_points(")
+# arguments a wrapper takes and checks but whose values no term reads
+UNREAD = {"aer_activation": (2, 3), "moist_rad_coup": (2,),
+          "buoyancy": (2,)}
+GATE_SHAPE, RAGGED_SHAPE = (128, 40), (123, 16)
+AQUA_COLUMNS = 6 * 48 * 48           # 13,824; c192: 221,184
 # preset -> (label, steps timed after 3 warm-up steps, launches per step)
 PATHS = {
-    "held_suarez_c48_l72": ("eager", 10, {"remap_banded": 3}),
+    "held_suarez_c48_l72": ("eager", 5, {"remap_banded": 3}),
     "held_suarez_c48_l72_fused": ("fused", 10, {
         "dsw_csw1": 6, "dsw_csw2": 6, "dsw_transport": 6, "dsw_wind": 6,
         "dsw_tracer_acc": 2, "remap_banded": 3}),
     "held_suarez_c192_l72_fused": ("c192", 5, {       # n_split 8
         "dsw_csw1": 8, "dsw_csw2": 8, "dsw_transport": 8, "dsw_wind": 8,
         "dsw_tracer_acc": 2, "remap_banded": 3}),
-    "held_suarez_c48_l72_nh_fused": ("nh", 10, {
+    "held_suarez_c48_l72_nh_fused": ("nh", 5, {
         "dsw_csw1": 6, "dsw_csw2": 6, "dsw_transport": 6, "dsw_wind": 6,
         "dsw_tracer": 6, "dsw_nh_pert": 6, "remap_banded": 3}),
+    # c48-L32, three tracers: dsw_tracer_acc 3 tracers x q_split 2; the
+    # remap takes pt and the three tracers in one call, then u, then v;
+    # the physics fills qv, ql and qr and runs the microphysics once
+    "aquaplanet_c48_l32": ("aqua-eager", 10, {"remap_banded": 3}),
+    "aquaplanet_c48_l32_fused": ("aqua", 10, {
+        "dsw_csw1": 6, "dsw_csw2": 6, "dsw_transport": 6, "dsw_wind": 6,
+        "dsw_tracer_acc": 6, "remap_banded": 3, "fill_q2_zero": 3,
+        "gfdl_microphysics": 1}),
 }
 
 
@@ -311,6 +375,168 @@ def check_kernels(torch, dsw, args, names, form, card, results, reps=20):
               f"{reps}; {card})")
 
 
+def column_case(gate, name, d):
+    """(wrapper, plain version, arguments, the tensors its formula reads)
+    of the physics gate's kernel `name` on one dataset `d` of the gate's
+    recipe, with the gate's arguments (parcel t + 0.5 K, dt 600 s)."""
+    kern = gate.WRAPPERS[name]
+    plain = getattr(sys.modules[kern.__module__], kern.__name__ + "_plain")
+    args = gate.arguments(name, d)
+    reads = tuple(a for n, a in enumerate(args)
+                  if n not in UNREAD.get(kern.__name__, ()))
+    return kern, plain, args, reads
+
+
+def outputs_of(out):
+    """A wrapper's result as a list of tensors."""
+    if isinstance(out, dict):
+        return list(out.values())
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+def check_column_kernel(torch, name, case, label, card, errors, results=None,
+                        reps=20):
+    """One column kernel against its plain version on `case`, within
+    REL_GATE of max|plain| per output; errors[name] keeps the largest
+    absolute error seen.  With `results`, also the median times and the
+    bound: results[name] = (max_abs_err, ms, plain_ms, bound_ms, by)."""
+    kern, plain, args, reads = case
+    before = kern.launches
+    got, want = outputs_of(kern(*args)), outputs_of(plain(*args))
+    torch.cuda.synchronize()
+    if kern.launches != before + 1:
+        fail(f"{name} {label}: the wrapper counted "
+             f"{kern.launches - before} launches for one call")
+    err, rel = compare(f"{name} {label}", got, want, False)
+    errors[name] = max(errors.get(name, 0.0), err)
+    shape = tuple(got[0].shape)
+    if results is None:
+        return err, rel
+    k_ms = median_ms(torch, lambda: kern(*args), reps=reps)
+    p_ms = median_ms(torch, lambda: plain(*args), reps=reps)
+    by = bound(name, tensors_of(torch, reads, ()), got)
+    b_ms, b_by = max(by), ("bytes" if by[0] >= by[1] else "operations")
+    results[name] = (errors[name], k_ms, p_ms, b_ms, b_by)
+    print(f"[kernel] {name} {label} {shape}: max abs err {err:.3e}, max rel "
+          f"err {rel:.3e}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms by {b_by} (median of {reps}; {card})")
+    return err, rel
+
+
+def moist_perturbation(np, q_shape):
+    """Seeded factors for a moist start state: vapour x [1, 1.9) (up to
+    1.14 of saturation over the initial 60%), cloud liquid up to 3e-4 and
+    rain up to 1e-4 kg/kg, so that condensation, autoconversion,
+    sedimentation and evaporation all act."""
+    rng = np.random.default_rng(5)
+    lead = tuple(q_shape[:-1])
+    return ((1.0 + 0.9 * rng.random(lead)).astype(np.float32),
+            (3e-4 * rng.random(lead)).astype(np.float32),
+            (1e-4 * rng.random(lead)).astype(np.float32))
+
+
+def moisten(torch, np, state):
+    """`state` with moist_perturbation applied to its tracers."""
+    fac, ql, qr = (torch.as_tensor(a, device=state.q.device)
+                   for a in moist_perturbation(np, tuple(state.q.shape)))
+    q = state.q.clone()
+    q[..., 0] *= fac
+    q[..., 1] = ql
+    q[..., 2] = qr
+    return dataclasses.replace(state, q=q)
+
+
+def check_column_physics(torch, np, gate, model, dev, card, results):
+    """Phase 5: the seven column-physics kernels against their plain
+    versions at the gate's shape, a ragged one and the model's."""
+    errors = {}
+
+    def cases(seed, shape):
+        d = {k: torch.as_tensor(v, device=dev)
+             for k, v in gate.datasets(seed, shape).items()}
+        return {gate.WRAPPERS[name].__name__: column_case(gate, name, d)
+                for name in gate.KERNELS}
+
+    for label, seeds, shape in (("gate", range(1000, 1005), GATE_SHAPE),
+                                ("ragged", (7,), RAGGED_SHAPE)):
+        worst = {}
+        for seed in seeds:
+            for name, case in cases(seed, shape).items():
+                _, rel = check_column_kernel(torch, name, case,
+                                             f"{label} seed {seed}", card,
+                                             errors)
+                worst[name] = max(worst.get(name, 0.0), rel)
+        print(f"[kernel] column physics at {shape} ({label}, "
+              f"{len(list(seeds))} datasets), max rel err: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+
+    # the model's shape: microphysics and fill on what the physics chain
+    # hands them, the five others on the gate's sounding
+    st = model.dynamics(model.run(moisten(torch, np, model.init(perturb=3.0)),
+                                  2))
+    _, mp_args = model.microphysics_inputs(st)
+    delp = st.delp.contiguous()
+    tracers = [st.q[..., n].contiguous() for n in range(3)]
+    cloudy = int((mp_args[2] > 0).sum()), int((mp_args[3] > 0).sum())
+    negative = [int((q < 0).sum()) for q in tracers]
+    print(f"[kernel] aquaplanet state after 2 steps + dynamics "
+          f"{tuple(delp.shape)}: points with cloud {cloudy[0]}, with rain "
+          f"{cloudy[1]}; negative qv/ql/qr before filling {negative}")
+    if not (cloudy[0] and cloudy[1] and sum(negative)):
+        fail("the aquaplanet check state has no cloud, no rain or no "
+             "undershoot: the kernels would be checked on trivial inputs")
+    at_model = cases(1000, (AQUA_COLUMNS, delp.shape[-1]))
+    at_model["gfdl_microphysics"] = at_model["gfdl_microphysics"][:2] + (
+        mp_args, mp_args[:7])
+    fill = at_model["fill_q2_zero"][:2]
+    worst_q = max(range(3), key=lambda n: negative[n])
+    for n in range(3):
+        if n != worst_q:
+            check_column_kernel(torch, "fill_q2_zero",
+                                fill + ((tracers[n], delp), ()),
+                                f"tracer {n}", card, errors)
+    at_model["fill_q2_zero"] = fill + ((tracers[worst_q], delp),) * 2
+    for name, case in at_model.items():
+        check_column_kernel(torch, name, case, "model shape", card, errors,
+                            results)
+
+    # where gfdl_microphysics stops being bound by its launch
+    for ncol in (AQUA_COLUMNS, 16 * AQUA_COLUMNS):
+        case = cases(1000, (ncol, 72))["gfdl_microphysics"]
+        check_column_kernel(torch, "gfdl_microphysics", case, "sounding",
+                            card, errors, results={}, reps=10)
+        del case
+        torch.cuda.empty_cache()
+    for name in results:
+        if name in errors:
+            results[name] = (errors[name],) + results[name][1:]
+
+
+def run_gate_path(torch, gate, counters, dev, card):
+    """Phase 6: the dual-build gate as a path: counts set to 0, the gate
+    of all seven kernels over its datasets, counts read.  Returns
+    {kernel: launches}."""
+    for fn in counters.values():
+        fn.launches = 0
+    worst = {}
+    for name in gate.KERNELS:
+        try:
+            worst[name] = gate.run_gate(name, dev)
+        except gate.GateMiss as e:
+            fail(f"physics gate: {e}")
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for k, got in launches.items():
+        want = gate.N_DATASETS if k in COLUMN_PHYSICS else 0
+        if got != want:
+            fail(f"physics gate: {k} launched {got} times, expected {want}")
+    print(f"[gate] primaries against hand kernels, {gate.N_DATASETS} "
+          f"datasets of {gate.SHAPE}, worst rel RMS (gate {gate.REL_TOL}): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f"; every kernel launched {gate.N_DATASETS} times ({card})")
+    return launches
+
+
 def run_preset(torch, np, model, counters, label, card, steps, per_step):
     """Rest state, then 3 + `steps` steps with every count set to 0 just
     before and read just after, finiteness, peak memory, mass drift.
@@ -338,6 +564,8 @@ def run_preset(torch, np, model, counters, label, card, steps, per_step):
             fail(f"{label}: rest state left balance (w {wmax}, p' {pp})")
 
     s = model.init(perturb=1e-3)
+    moist = hasattr(model, "physics")
+    qv0 = float(s.q[..., 0].mean()) if moist else 0.0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
@@ -366,6 +594,21 @@ def run_preset(torch, np, model, counters, label, card, steps, per_step):
           f"in {n} steps: "
           + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
           + f"; ps {float(s.ps.min()):.1f}..{float(s.ps.max()):.1f} Pa")
+    if moist:
+        # the aquaplanet task's physical gates, and surface evaporation
+        # moistening the atmosphere
+        qv = s.q[..., 0]
+        lo, hi, mean = float(qv.min()), float(qv.max()), float(qv.mean())
+        print(f"[{label}] qv {lo:.3e}..{hi:.3e} kg/kg, mean {qv0:.6e} -> "
+              f"{mean:.6e} in {n} steps; max ql "
+              f"{float(s.q[..., 1].max()):.3e}, max qr "
+              f"{float(s.q[..., 2].max()):.3e}")
+        if not (lo >= -1e-6 and hi <= 0.06):
+            fail(f"{label}: vapour outside [-1e-6, 0.06]: {lo}..{hi}")
+        if not (float(s.ps.min()) > 5.0e4 and float(s.ps.max()) < 1.2e5):
+            fail(f"{label}: surface pressure outside (5e4, 1.2e5) Pa")
+        if not mean > qv0:
+            fail(f"{label}: mean vapour did not rise ({qv0} -> {mean})")
 
     s = model.init(perturb=0.5)
     w = np.asarray(model.grid.area)[model.grid.interior][..., None]
@@ -380,36 +623,58 @@ def run_preset(torch, np, model, counters, label, card, steps, per_step):
     return sec * 1e3, launches
 
 
-def card_vs_cpu(torch, np, preset, dev, label, **changes):
+def card_vs_cpu(torch, np, pname, dev, label, size=(12, 8, 2), **changes):
+    """3 steps of preset `pname` at size = (npx, npz, n_split), dt 1200,
+    from one numpy state on the card and on the CPU, within the
+    whole-slice gate; an aquaplanet preset starts from a moist-perturbed
+    state and holds each tracer relative to max|qv|."""
+    from geosongpu_tpu_torch.cli import MODELS, PRESETS, build_model_for
     from geosongpu_tpu_torch.core.state import state_from_numpy, state_to_numpy
-    from geosongpu_tpu_torch.models.held_suarez import build_model
 
-    small = dataclasses.replace(preset, npx=12, npz=8, dt=1200.0, n_split=2,
-                                **changes)
-    m_cpu = build_model(small, torch.device("cpu"))
-    m_gpu = build_model(small, dev)
+    npx, npz, n_split = size
+    small = dataclasses.replace(PRESETS[pname], npx=npx, npz=npz, dt=1200.0,
+                                n_split=n_split, **changes)
+    m_cpu = build_model_for(pname)(small, torch.device("cpu"))
+    m_gpu = build_model_for(pname)(small, dev)
+    moist = MODELS.get(pname) == "aquaplanet"
     start = state_to_numpy(m_cpu.init(perturb=3.0))
-    rng = np.random.default_rng(5)
-    start["q"] = (1.0 + 0.2 * rng.random(start["q"].shape)).astype(np.float32)
+    if moist:
+        fac, ql, qr = moist_perturbation(np, start["q"].shape)
+        start["q"][..., 0] *= fac
+        start["q"][..., 1], start["q"][..., 2] = ql, qr
+    else:
+        rng = np.random.default_rng(5)
+        start["q"] = (1.0 + 0.2 * rng.random(start["q"].shape)
+                      ).astype(np.float32)
     a = state_to_numpy(m_cpu.run(state_from_numpy(start, "cpu"), 3))
     b = state_to_numpy(m_gpu.run(state_from_numpy(start, dev), 3))
     diffs = {}
     fields = ("u", "v", "delp", "pt", "q", "ps")
     if not small.hydrostatic:
         fields += ("w", "delz")
+    where = f"{label} card vs CPU at c{npx}-L{npz}"
     for f in fields:
         if a[f].shape != b[f].shape or not np.isfinite(b[f]).all():
-            fail(f"{label} card vs CPU at c12-L8: {f} has shape "
-                 f"{b[f].shape} on the card, {a[f].shape} on the CPU, or is "
-                 "not finite")
-        scale = float(np.abs(a[f]).max())
-        d = float(np.abs(a[f] - b[f]).max())
-        diffs[f] = d / scale
+            fail(f"{where}: {f} has shape {b[f].shape} on the card, "
+                 f"{a[f].shape} on the CPU, or is not finite")
+        # the tracers of the moist model one by one, each against max|qv|
+        parts = {f: (a[f], b[f])} if not (moist and f == "q") else {
+            name: (a[f][..., n], b[f][..., n])
+            for n, name in enumerate(("qv", "ql", "qr"))}
+        scale = float(np.abs(a[f][..., 0] if moist and f == "q"
+                             else a[f]).max())
         atol = SLICE_WIND_ATOL if f in ("u", "v", "w") else 0.0
-        if not d <= max(SLICE_GATE * scale, atol):
-            fail(f"{label} card vs CPU at c12-L8: {f} differs by {d:.3e} "
-                 f"(max {scale:.3e})")
-    print(f"[cpu-vs-card] {label} c12-L8, 3 steps, max rel diff: "
+        for name, (x, y) in parts.items():
+            d = float(np.abs(x - y).max())
+            diffs[name] = d / scale
+            if not d <= max(SLICE_GATE * scale, atol):
+                fail(f"{where}: {name} differs by {d:.3e} (scale "
+                     f"{scale:.3e})")
+    if moist and not (b["q"][..., 1].max() > 1e-4
+                      and b["q"][..., 2].max() > 1e-5):
+        fail(f"{where}: no cloud or no rain after 3 steps")
+    print(f"[cpu-vs-card] {label} c{npx}-L{npz}, 3 steps, max rel diff"
+          + (" (ql, qr relative to max|qv|): " if moist else ": ")
           + ", ".join(f"{k} {v:.2e}" for k, v in diffs.items()))
 
 
@@ -459,16 +724,22 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
     try:
-        from geosongpu_tpu_torch.cli import PRESETS
-        from geosongpu_tpu_torch.models.held_suarez import build_model
+        from geosongpu_tpu_torch.cli import PRESETS, build_model_for
         from geosongpu_tpu_torch.ops.kernels import build, dsw
+        from geosongpu_tpu_torch.ops.kernels import columns as kcol
+        from geosongpu_tpu_torch.ops.kernels import microphysics as kmic
         from geosongpu_tpu_torch.ops.kernels import remap as kremap
+        from geosongpu_tpu_torch.ops.kernels import standalone_twins as ktw
         from geosongpu_tpu_torch.ops.remap import remap_fields_banded
+        from geosongpu_tpu_torch.physics import standalone_gate as gate
     except ImportError as e:
         fail(f"run from the root of a checkout (port not importable: {e})")
     dev = torch.device("cuda")
-    counters = {"remap_banded": kremap.remap_banded,
-                **{k.__name__: k for k in dsw.KERNELS}}
+    counters = {k.__name__: k for k in (
+        (kremap.remap_banded,) + dsw.KERNELS + (kmic.gfdl_microphysics,)
+        + kcol.KERNELS + ktw.KERNELS)}
+    if list(counters) != list(KERNELS):
+        fail(f"the wrappers {list(counters)} are not the kernels of KERNELS")
 
     # ---- 1. device ------------------------------------------------------
     card = card_line()
@@ -529,7 +800,7 @@ def main() -> int:
 
     def model_of(name):
         if name not in models:
-            models[name] = build_model(PRESETS[name], dev)
+            models[name] = build_model_for(name)(PRESETS[name], dev)
         return models[name]
 
     args = kernel_inputs(torch, np, model_of("held_suarez_c48_l72"), dev)
@@ -551,8 +822,16 @@ def main() -> int:
     del args, a
     torch.cuda.empty_cache()
 
-    # ---- 5. the four main paths ------------------------------------------
-    step_ms, launches = {}, {}
+    # ---- 5. the column-physics kernels against their plain versions ------
+    check_column_physics(torch, np, gate,
+                         model_of("aquaplanet_c48_l32_fused"), dev, card,
+                         results)
+
+    # ---- 6. the dual-build gate of the physics kernels, as a path ---------
+    launches = {"gate": run_gate_path(torch, gate, counters, dev, card)}
+
+    # ---- 7. the six model paths --------------------------------------------
+    step_ms = {}
     for pname, (label, steps, per_step) in PATHS.items():
         step_ms[label], launches[label] = run_preset(
             torch, np, model_of(pname), counters, label, card, steps,
@@ -561,19 +840,20 @@ def main() -> int:
         f"{label} {ms:.2f} ms/step" for label, ms in step_ms.items())
         + f" ({card})")
 
-    # ---- 6. profiler window ---------------------------------------------
+    # ---- 8. profiler window ---------------------------------------------
     for pname, (label, _, _) in PATHS.items():
         profile_steps(torch, model_of(pname), label, card)
     models.clear()
     torch.cuda.empty_cache()
 
-    # ---- 7. card against CPU ----------------------------------------------
-    fused_preset = PRESETS["held_suarez_c48_l72_fused"]
-    card_vs_cpu(torch, np, preset, dev, "eager")
-    card_vs_cpu(torch, np, fused_preset, dev, "fused")
-    card_vs_cpu(torch, np, PRESETS["held_suarez_c48_l72_nh_fused"], dev, "nh")
-    card_vs_cpu(torch, np, fused_preset, dev, "blend",
+    # ---- 9. card against CPU ----------------------------------------------
+    card_vs_cpu(torch, np, "held_suarez_c48_l72", dev, "eager")
+    card_vs_cpu(torch, np, "held_suarez_c48_l72_fused", dev, "fused")
+    card_vs_cpu(torch, np, "held_suarez_c48_l72_nh_fused", dev, "nh")
+    card_vs_cpu(torch, np, "held_suarez_c48_l72_fused", dev, "blend",
                 damping_exchange="blend")
+    card_vs_cpu(torch, np, "aquaplanet_c48_l32_fused", dev, "aqua",
+                size=(8, 12, 4))
 
     # each entry: (key of results, kernel, path whose launches it reports)
     entries = [(k, k, "fused") for k in list(KERNELS)[:6]] + [
@@ -581,7 +861,13 @@ def main() -> int:
         ("dsw_transport nh", "dsw_transport", "nh"),
         ("dsw_wind nh", "dsw_wind", "nh"),
         ("dsw_tracer", "dsw_tracer", "nh"),
-        ("dsw_nh_pert", "dsw_nh_pert", "nh")]
+        ("dsw_nh_pert", "dsw_nh_pert", "nh"),
+        ("gfdl_microphysics", "gfdl_microphysics", "aqua"),
+        ("fill_q2_zero", "fill_q2_zero", "aqua")] + [
+        (k, k, "gate") for k in COLUMN_PHYSICS[2:]]
+    for key, k, path in entries:
+        if launches[path][k] < 1:
+            fail(f"{key}: not launched on the {path} path")
     print(json.dumps({"kernels": [{
         "name": key,
         "route": "cuda",

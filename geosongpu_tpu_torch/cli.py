@@ -1,9 +1,17 @@
-"""Command line: run the Held-Suarez model on the port.
+"""Command line: run a model of the port, or its physics gate.
 
     python -m geosongpu_tpu_torch.cli run [--preset NAME]
         [--npx N --npz K] --steps S [--device cuda|cpu]
+    python -m geosongpu_tpu_torch.cli physics [--kernel NAME|all]
+        [--device cuda|cpu]
 
-Every preset is Held-Suarez with 72 levels, dt 600 s and hord_tm 6, the
+`run` steps the preset's model, Held-Suarez or aquaplanet.  `physics` runs
+the dual-build gate of the standalone physics kernels
+(physics/standalone_gate.py): each primary against its hand-written kernel
+over five datasets, relative RMS <= 1e-4 per variable; it exits with 1 on
+a miss.
+
+The Held-Suarez presets have 72 levels, dt 600 s and hord_tm 6, the
 configuration of the repository's headline benchmark (bench.py) and of the
 rungs of scripts/bench_ladder.py; n_split is 6 except at c192:
 
@@ -21,6 +29,17 @@ rungs of scripts/bench_ladder.py; n_split is 6 except at c192:
   delz, dsw_tracer runs once per tracer and substep, the implicit vertical
   solve follows, and dsw_wind takes the p', phi' and rho of dsw_nh_pert.
 
+The aquaplanet presets are the `aquaplanet_c48` experiment of the harness
+(c48, 32 levels, dt 600 s, n_split 6, the tracers qv, ql and qr), as the
+pair its Benchmark action times:
+
+* `aquaplanet_c48_l32_fused`: pallas_dycore=True and
+  pallas_microphysics=True: the fused substep, dsw_tracer_acc for each of
+  the three tracers, and the CUDA kernels fill_q2_zero (three times a
+  step) and gfdl_microphysics;
+* `aquaplanet_c48_l32`: both flags off, everything in plain PyTorch but
+  the banded remap.
+
 CUDA is required unless `--device cpu` is given.
 """
 from __future__ import annotations
@@ -33,6 +52,7 @@ import time
 from .core.config import DycoreConfig
 
 _HS72 = dict(npz=72, dt=600.0, n_split=6, hord_tm=6)
+_AQ32 = dict(npx=48, npz=32, dt=600.0, n_split=6, ntracers=3)
 PRESETS = {
     "held_suarez_c48_l72": DycoreConfig(npx=48, pallas_dycore=False, **_HS72),
     "held_suarez_c48_l72_fused": DycoreConfig(npx=48, pallas_dycore=True,
@@ -42,36 +62,81 @@ PRESETS = {
     "held_suarez_c48_l72_nh_fused": DycoreConfig(
         npx=48, pallas_dycore=True, hydrostatic=False, z_tracer=False,
         **_HS72),
+    "aquaplanet_c48_l32": DycoreConfig(**_AQ32),
+    "aquaplanet_c48_l32_fused": DycoreConfig(
+        pallas_dycore=True, pallas_microphysics=True, **_AQ32),
 }
+# preset -> model ("held_suarez" unless named here)
+MODELS = {"aquaplanet_c48_l32": "aquaplanet",
+          "aquaplanet_c48_l32_fused": "aquaplanet"}
+
+
+def build_model_for(preset: str):
+    """build_model(config, device) of the preset's model."""
+    if MODELS.get(preset) == "aquaplanet":
+        from .models.aquaplanet import build_model
+    else:
+        from .models.held_suarez import build_model
+    return build_model
+
+
+def _physics(kernel: str, device) -> int:
+    from .physics import standalone_gate as gate
+
+    names = sorted(gate.KERNELS) if kernel == "all" else [kernel]
+    missed = 0
+    for name in names:
+        try:
+            worst = gate.run_gate(name, device)
+        except gate.GateMiss as e:
+            print(f"{name}: MISSED: {e}")
+            missed += 1
+        else:
+            print(f"{name}: {gate.N_DATASETS} datasets within "
+                  f"{gate.REL_TOL:.0e} (worst rel RMS {worst:.3e})")
+    return 1 if missed else 0
 
 
 def main(argv=None) -> int:
-    p = argparse.ArgumentParser(prog="geosongpu-tpu-torch")
+    p = argparse.ArgumentParser(
+        prog="geosongpu-tpu-torch",
+        description="Held-Suarez and aquaplanet models and the physics "
+                    "gate of the PyTorch/CUDA port")
     sub = p.add_subparsers(dest="cmd", required=True)
-    run = sub.add_parser("run", help="run the Held-Suarez model")
+    run = sub.add_parser("run", help="run a preset's model (Held-Suarez or "
+                                     "aquaplanet)")
     run.add_argument("--preset", default="held_suarez_c48_l72",
                      choices=sorted(PRESETS))
     run.add_argument("--npx", type=int, default=None)
     run.add_argument("--npz", type=int, default=None)
     run.add_argument("--steps", type=int, default=8)
-    run.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    phys = sub.add_parser("physics", help="the dual-build gate of the "
+                                          "standalone physics kernels")
+    phys.add_argument("--kernel", default="all")
+    for sp in (run, phys):
+        sp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = p.parse_args(argv)
 
     import torch
 
-    from .models.held_suarez import build_model
-
     if args.device == "cuda" and not torch.cuda.is_available():
         p.error("CUDA is not available; pass --device cpu to run on the CPU")
+    device = torch.device(args.device)
+    if args.cmd == "physics":
+        from .physics.standalone_gate import KERNELS
+
+        if args.kernel != "all" and args.kernel not in KERNELS:
+            p.error(f"--kernel: one of all, {', '.join(sorted(KERNELS))}")
+        return _physics(args.kernel, device)
+
     cfg = PRESETS[args.preset]
     if args.npx is not None:
         cfg = dataclasses.replace(cfg, npx=args.npx)
     if args.npz is not None:
         cfg = dataclasses.replace(cfg, npz=args.npz)
-    device = torch.device(args.device)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
 
-    model = build_model(cfg, device)
+    model = build_model_for(args.preset)(cfg, device)
     state = model.init(perturb=1e-3)
     t0 = time.perf_counter()
     state = model.step(state)   # warm-up: kernel build, allocator
@@ -86,7 +151,9 @@ def main(argv=None) -> int:
     print(f"c{cfg.npx}-L{cfg.npz} on {where}: {args.steps} steps in "
           f"{dt:.3f} s ({dt / args.steps * 1e3:.2f} ms/step); "
           f"ps range {float(state.ps.min()):.0f}..{float(state.ps.max()):.0f}"
-          f" Pa; max|u| {float(state.u.abs().max()):.2f} m/s")
+          f" Pa; max|u| {float(state.u.abs().max()):.2f} m/s"
+          + (f"; mean qv {float(state.q[..., 0].mean()):.3e} kg/kg"
+             if MODELS.get(args.preset) == "aquaplanet" else ""))
     return 0
 
 

@@ -33,7 +33,7 @@ from ..ops.kernels.remap import remap_banded
 from ..ops.remap import remap_field
 from ..ops.vertical import cumsum_k, interfaces_from_delp
 from ..parallel.halo import HaloOps, build_halo_ops
-from .nh_solver import hydrostatic_delz
+from .nh_solver import _exner_mid, hydrostatic_delz
 from .sw import (PaddedMetrics, StagResample, d_sw_substep, fill_substep,
                  padded_metrics, stag_resample_tables)
 from .sw_fused import d_sw_substep_fused, tracer_interval_advect
@@ -56,6 +56,11 @@ def check_supported(cfg: DycoreConfig) -> None:
         unported.append(f"dtype={cfg.dtype!r} (the port runs float32)")
     if unported:
         raise NotImplementedError("not ported: " + "; ".join(unported))
+
+
+def exner_mid(delp: torch.Tensor, ptop: float) -> torch.Tensor:
+    """Layer-mean Exner function pkz (T = pt * pkz)."""
+    return _exner_mid(interfaces_from_delp(delp, ptop))
 
 
 def _use_exchange(cfg: DycoreConfig) -> bool:

@@ -1,0 +1,156 @@
+"""Aquaplanet model: moist dynamics over a zonally uniform ocean
+(geosongpu_tpu/models/aquaplanet.py).
+
+The hydrostatic FV dycore advects vapour, cloud liquid and rain, and the
+physics chain of a step is
+
+  conservative filling of negative tracer values (fill_q2_zero)
+  -> surface fluxes (bulk formulas over the prescribed 'Qobs' SST(lat))
+  -> shallow-convective mixing (cup_gf_sh)
+  -> GFDL single-moment microphysics (saturation adjustment, rain,
+     sedimentation, latent heating)
+  -> Held-Suarez radiative relaxation (keeps the run bounded without a
+     radiation scheme).
+
+Tracer layout: q[..., 0] = qv, q[..., 1] = ql, q[..., 2] = qr.
+
+With `pallas_microphysics=True` the three fills and the microphysics go
+through the kernel wrappers of ops/kernels/{columns,microphysics}.py: CUDA
+kernels for a state on a card, their plain versions for one on the CPU.
+With False they are the primaries of physics/standalone.py everywhere.
+cup_gf_sh on the model path is the primary in either case.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..core.config import DycoreConfig
+from ..core.state import DycoreState
+from ..dycore.fv_dynamics import exner_mid
+from ..ops.kernels import columns as kcolumns
+from ..ops.kernels import microphysics as kmicro
+from ..ops.kernels.build import load_library
+from ..ops.vertical import interfaces_from_delp
+from ..parallel.halo import symmetrize_shared_edges
+from ..physics import standalone as primary
+from ..physics.held_suarez import held_suarez_forcing
+from ..physics.thermo import CP_AIR, GRAV, RDGAS, qsat
+from . import held_suarez
+
+CD = 1.2e-3   # bulk transfer coefficient of the surface fluxes
+
+
+def sst_qobs(lat: torch.Tensor) -> torch.Tensor:
+    """Aqua-Planet Experiment 'Qobs' SST profile [K]."""
+    phi = torch.clamp(lat.abs(), 0.0, torch.pi / 3)
+    x = torch.sin(1.5 * phi) ** 2
+    return 273.16 + 27.0 * (1.0 - 0.5 * (x + x * x))
+
+
+class AquaplanetModel(held_suarez.HeldSuarezModel):
+    """The Held-Suarez model's grid, context and dynamics with the moist
+    initial state and the moist physics chain."""
+
+    def __init__(self, config: DycoreConfig, *args):
+        if config.ntracers < 3:
+            raise ValueError("aquaplanet needs the qv/ql/qr tracers "
+                             f"(ntracers >= 3), got {config.ntracers}")
+        super().__init__(config, *args)
+        if config.pallas_microphysics and self.device.type == "cuda":
+            load_library()   # a card without a working build fails here
+        self.sst = sst_qobs(self.lats.lat_c)
+
+    def init(self, perturb: float = 1.0e-3, seed: int = 0) -> DycoreState:
+        """The dry initial state with 60% relative humidity below
+        sigma = 0.5 and 1e-6 kg/kg aloft."""
+        state = super().init(perturb=perturb, seed=seed)
+        ptop = self.config.ptop
+        t = state.pt * exner_mid(state.delp, ptop)
+        pe = interfaces_from_delp(state.delp, ptop)
+        p_mid = 0.5 * (pe[..., 1:] + pe[..., :-1])
+        sigma = p_mid / pe[..., -1:]
+        q = state.q.clone()
+        q[..., 0] = torch.where(sigma > 0.5, 0.6 * qsat(t, p_mid),
+                                torch.full_like(t, 1e-6))
+        return dataclasses.replace(state, q=q)
+
+    def microphysics_inputs(self, state: DycoreState,
+                            fill=primary.fill_q2_zero):
+        """The physics chain up to the microphysics: filling (by `fill`),
+        surface fluxes and shallow convection -> (pkz, (t, qv, ql, qr, qi,
+        p_mid, delp, dt)), the second being the microphysics' arguments."""
+        cfg = self.config
+        dt = cfg.dt
+        delp = state.delp.contiguous()
+        pkz = exner_mid(delp, cfg.ptop)
+        t = state.pt * pkz
+        pe = interfaces_from_delp(delp, cfg.ptop)
+        p_mid = 0.5 * (pe[..., 1:] + pe[..., :-1])
+        # clean advection undershoots conservatively before physics; the
+        # tracer slices are strided views, the kernels take contiguous
+        # columns
+        qv, ql, qr = (fill(state.q[..., n].contiguous(), delp)
+                      for n in range(3))
+
+        # ---- surface fluxes (bulk, lowest layer) ------------------------
+        wind = torch.sqrt(state.ua[..., -1] ** 2
+                          + state.va[..., -1] ** 2) + 1.0
+        rho_s = p_mid[..., -1] / (RDGAS * t[..., -1])
+        dp_bot = delp[..., -1]
+        qs_sst = qsat(self.sst, pe[..., -1])
+        evap = CD * wind * rho_s * torch.clamp_min(qs_sst - qv[..., -1], 0.0)
+        shf = CD * wind * rho_s * CP_AIR * (self.sst - t[..., -1])
+        qv[..., -1] += evap * GRAV * dt / dp_bot
+        t[..., -1] += shf * GRAV * dt / (CP_AIR * dp_bot)
+
+        # ---- shallow convection -----------------------------------------
+        t, qv = primary.cup_gf_sh(t, qv, p_mid, delp, dt)
+        return pkz, (t, qv, ql, qr, torch.zeros_like(ql), p_mid, delp, dt)
+
+    def physics(self, state: DycoreState) -> DycoreState:
+        """The moist physics chain alone, on the state the dynamics left."""
+        cfg = self.config
+        if cfg.pallas_microphysics:
+            fill = kcolumns.fill_q2_zero
+            microphysics = kmicro.gfdl_microphysics
+        else:
+            fill = primary.fill_q2_zero
+            microphysics = primary.gfdl_microphysics
+        pkz, args = self.microphysics_inputs(state, fill)
+        t, qv, ql, qr, _qi, _precip = microphysics(*args)
+
+        # ---- radiative relaxation (Held-Suarez style, weak) -------------
+        q = torch.stack([qv, ql, qr] + [state.q[..., n] for n in
+                                        range(3, state.q.shape[-1])], dim=-1)
+        u, v, pt = held_suarez_forcing(state.u, state.v, t / pkz, state.delp,
+                                       self.lats, cfg.ptop, cfg.dt)
+        return dataclasses.replace(state, u=u, v=v, pt=pt, q=q)
+
+    def step(self, state: DycoreState) -> DycoreState:
+        state = self.physics(self.dynamics(state))
+        if self.config.edge_symmetrize:
+            u, v = symmetrize_shared_edges(state.u, state.v)
+            state = dataclasses.replace(state, u=u, v=v)
+        state.check_f32()
+        return state
+
+    def run_with_history(self, state: DycoreState, steps: int):
+        """`steps` steps -> (state, {diagnostic: [steps] tensor}) with the
+        mean surface pressure, max |u|, mean vapour and the (unrecorded)
+        precipitation total after each step."""
+        names = ("ps_mean", "umax", "qv_mean", "precip_total")
+        rows = []
+        for _ in range(steps):
+            state = self.step(state)
+            rows.append(torch.stack([
+                state.ps.mean(), state.u.abs().max(),
+                state.q[..., 0].mean(), torch.zeros_like(state.ps[0, 0, 0])]))
+        hist = torch.stack(rows) if rows else torch.zeros(
+            (0, 4), dtype=state.ps.dtype, device=state.ps.device)
+        return state, {n: hist[:, i] for i, n in enumerate(names)}
+
+
+def build_model(config: DycoreConfig, device) -> AquaplanetModel:
+    return held_suarez.build_model(config, device, AquaplanetModel)

@@ -61,7 +61,9 @@ class HeldSuarezModel:
         return state
 
 
-def build_model(config: DycoreConfig, device) -> HeldSuarezModel:
+def build_model(config: DycoreConfig, device, model_cls=HeldSuarezModel):
+    """The model of `config` on `device`; model_cls: HeldSuarezModel or a
+    subclass with its constructor."""
     device = torch.device(device)
     grid = build_grid(config.npx, config.halo)
     if config.vertical == "sigma":
@@ -69,5 +71,4 @@ def build_model(config: DycoreConfig, device) -> HeldSuarezModel:
     else:
         ak, bk = hybrid_coordinate(config.npz, config.ptop)
     ctx = build_context(config, grid, ak, bk, device)
-    return HeldSuarezModel(config, grid, ctx, hs_latitudes(grid, device),
-                           ak, bk)
+    return model_cls(config, grid, ctx, hs_latitudes(grid, device), ak, bk)

@@ -5,7 +5,9 @@ process per source, all started together, and the objects are linked into
 one shared library with a plain C interface, bound with ctypes.  The build
 goes to `geosongpu_tpu_torch/_build/<hash>/`, keyed by a hash over every
 `.cu` and `.cuh` source and the flags, at first use; nothing is compiled
-or loaded at import time.
+or loaded at import time.  `check_tensors` and `launch` are what every
+wrapper shares: the input checks and the call of a C entry on the current
+stream.
 
 The kernels build with `--fmad=false`: their arithmetic then matches the
 plain PyTorch versions operation by operation, and a hord-8 limiter branch
@@ -139,3 +141,49 @@ def load_library() -> KernelLibrary:
     _LIBRARY = KernelLibrary(lib=ctypes.CDLL(str(so)), path=so,
                              build_seconds=seconds, build_log=log)
     return _LIBRARY
+
+
+_CTYPES = {"P": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
+           "f": ctypes.c_float}
+
+
+def device_of(name: str, t) -> torch.device:
+    """The device of the tensor that decides a wrapper's route (CPU: the
+    plain version, CUDA: the kernel)."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.device
+
+
+def check_tensors(kernel: str, dev, named_shapes) -> None:
+    """Raise unless every (name, tensor, shape) is a contiguous float32
+    tensor of that shape on `dev`."""
+    for name, t, shape in named_shapes:
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{kernel}: {name} is not a tensor")
+        if t.device != dev:
+            raise ValueError(f"{kernel}: {name} is on {t.device}, expected "
+                             f"{dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{kernel}: {name} is {t.dtype}, expected "
+                            "torch.float32")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)},"
+                             f" expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def launch(kernel: str, spec: str, dev, args) -> None:
+    """Call C entry `<kernel>_f32` with `args` (spec: one of P/i/l/f per
+    argument) plus the device index and current stream; raise on a CUDA
+    error."""
+    fn = load_library().function(f"{kernel}_f32",
+                                 [_CTYPES[c] for c in spec + "iP"])
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    rc = fn(*args, index, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{kernel}: kernel launch failed with CUDA error "
+                           f"{rc}")

@@ -30,7 +30,9 @@ from ...dycore.sw import (P00, PaddedMetrics, SWState, _hydrostatic_fields,
                           c_sw_part1, c_sw_part2, nh_perturbation_fields,
                           transport_part, wind_part)
 from ..fvtp2d import ddx, ddy, fvtp2d
-from .build import load_library
+from .build import check_tensors as _check
+from .build import device_of as _device
+from .build import launch, load_library
 
 # (rows - Ny, cols - Nx) of each PaddedMetrics field, in field order
 METRIC_STAGGER = {
@@ -56,7 +58,6 @@ class _MetricsC(ctypes.Structure):
                 ("cols", ctypes.c_int * _NM)]
 
 
-_CTYPES = {"P": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 _METRIC_CACHE = {}      # id(m) -> (m, (F, Ny, Nx, device), _MetricsC)
 _NAMES_CHECKED = False
 
@@ -145,36 +146,11 @@ def dsw_tracer_acc_plain(qx, qy, pd_x, uacc, vacc, mfx, mfy,
 # checks and launch
 # --------------------------------------------------------------------------
 
-def _device(name: str, t) -> torch.device:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {t.device}")
-    return t.device
-
-
 def _grid(name: str, t):
     if t.dim() != 4:
         raise ValueError(f"{name} must be [F, Ny, Nx, K], got shape "
                          f"{tuple(t.shape)}")
     return tuple(t.shape)
-
-
-def _check(kernel: str, dev, named_shapes):
-    for name, t, shape in named_shapes:
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{kernel}: {name} is not a tensor")
-        if t.device != dev:
-            raise ValueError(f"{kernel}: {name} is on {t.device}, expected "
-                             f"{dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{kernel}: {name} is {t.dtype}, expected "
-                            "torch.float32")
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)},"
-                             f" expected {tuple(shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
 def _metrics(kernel: str, m: PaddedMetrics, F, Ny, Nx, dev) -> _MetricsC:
@@ -198,24 +174,16 @@ def _metrics(kernel: str, m: PaddedMetrics, F, Ny, Nx, dev) -> _MetricsC:
 
 
 def _launch(kernel: str, spec: str, dev, args):
-    """Call C entry `<kernel>_f32` with `args` (spec: one of P/i/f per
-    argument) plus the device index and current stream; raise on a CUDA
-    error."""
+    """build.launch, after one check of the library's metric order."""
     global _NAMES_CHECKED
-    lib = load_library()
     if not _NAMES_CHECKED:
-        names = lib.function("dsw_metric_names", [], ctypes.c_char_p)()
+        names = load_library().function("dsw_metric_names", [],
+                                        ctypes.c_char_p)()
         if tuple(names.decode().split(",")) != PaddedMetrics._fields:
             raise RuntimeError("csrc/dsw_common.cuh's metric order differs "
                                "from PaddedMetrics._fields")
         _NAMES_CHECKED = True
-    fn = lib.function(f"{kernel}_f32",
-                      [_CTYPES[c] for c in spec + "iP"])
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    rc = fn(*args, index, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{kernel}: kernel launch failed with CUDA error "
-                           f"{rc}")
+    launch(kernel, spec, dev, args)
 
 
 def _ptrs(*ts):

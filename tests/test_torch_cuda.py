@@ -1,8 +1,10 @@
-"""Tests that need an NVIDIA card: the CUDA kernels (remap_banded and the
-fused substep kernels, in every form: hydrostatic, nonhydrostatic, blend)
-against their plain PyTorch versions, their input checks, and the port's
-model on the card against the CPU: eager, fused, nonhydrostatic with
-per-substep tracers, and the blend damping form.  They skip without CUDA.
+"""Tests that need an NVIDIA card: the CUDA kernels (remap_banded, the
+fused substep kernels in every form - hydrostatic, nonhydrostatic, blend -
+and the seven column-physics kernels) against their plain PyTorch versions,
+their input checks, the physics gate on the card, and the port's models on
+the card against the CPU: Held-Suarez eager, fused, nonhydrostatic with
+per-substep tracers and the blend damping form, and the fused aquaplanet
+model.  They skip without CUDA.
 This file imports no jax, so on the card's machine it runs on its own:
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_cuda.py -q
@@ -351,3 +353,109 @@ def test_blend_fused_model_on_card_matches_cpu(cuda):
     n = cfg.n_split
     _card_vs_cpu(cfg, cuda, ("u", "v", "delp", "pt", "q", "ps"),
                  [n, n, n, n, cfg.q_split, 0, 0, 3])
+
+
+# ---- the column-physics kernels --------------------------------------------
+
+GATE_KERNELS = ("FillQ2Zero", "Buoyancy", "EvapSublPdfLoop", "AerActivation",
+                "GFDLMicrophysics", "MoistRadCoup", "CupGfSh")
+
+
+def _column_case(name, lead, K, seed, dev):
+    """(wrapper, plain version, arguments) of the physics gate's kernel
+    `name` on the gate's sounding, reshaped to the leading shape `lead`."""
+    import sys
+
+    from geosongpu_tpu_torch.physics import standalone_gate as gate
+
+    d = {k: torch.as_tensor(v.reshape(lead + (K,)), device=dev)
+         for k, v in gate.datasets(seed, (int(np.prod(lead)), K)).items()}
+    kern = gate.WRAPPERS[name]
+    plain = getattr(sys.modules[kern.__module__], kern.__name__ + "_plain")
+    return kern, plain, gate.arguments(name, d)
+
+
+def _tensors(out):
+    if isinstance(out, dict):
+        return list(out.values())
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+@pytest.mark.parametrize("lead,K", [((128,), 40), ((123,), 16),
+                                    ((2, 3, 5), 9), ((7,), 2)])
+@pytest.mark.parametrize("name", GATE_KERNELS)
+def test_column_kernel_matches_plain(cuda, name, lead, K):
+    """Within 1e-5 of max|plain| per output, at the gate's shape, ragged
+    column counts, a leading shape of three axes and two levels."""
+    kern, plain, args = _column_case(name, lead, K, 1000 + K, cuda)
+    before = kern.launches
+    got = _tensors(kern(*args))
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = _tensors(plain(*args))
+    assert len(got) == len(want)
+    for n, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.dtype == torch.float32, (name, n)
+        assert bool(g.isfinite().all()), (name, n)
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max()), \
+            (name, n)
+
+
+@pytest.mark.parametrize("name", GATE_KERNELS)
+def test_column_wrapper_rejects_bad_inputs(cuda, name):
+    kern, _, args = _column_case(name, (6, 4), 8, 3, cuda)
+    a = list(args)
+    with pytest.raises(TypeError):
+        kern(*([a[0].double()] + a[1:]))
+    with pytest.raises(ValueError):
+        kern(*(a[:1] + [a[1][..., :-1].contiguous()] + a[2:]))
+    # a strided view, as state.q[..., 0] is: refused, not copied silently
+    strided = torch.stack([a[0], a[0]], dim=-1)[..., 0]
+    assert not strided.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        kern(*([strided] + a[1:]))
+
+
+@pytest.mark.parametrize("name", GATE_KERNELS)
+def test_physics_gate_on_card(cuda, name):
+    """The dual-build gate with the CUDA kernel as its second build."""
+    from geosongpu_tpu_torch.physics import standalone_gate as gate
+
+    worst = gate.run_gate(name, cuda)
+    assert 0.0 <= worst <= gate.REL_TOL
+
+
+def test_fused_aquaplanet_on_card_matches_cpu(cuda):
+    """3 steps at c8-L12 from a moist-perturbed numpy state: on the card
+    through the substep kernels, dsw_tracer_acc per tracer, fill_q2_zero
+    (3 per step) and gfdl_microphysics (1 per step); ql and qr relative
+    to max|qv|."""
+    from geosongpu_tpu_torch.models import aquaplanet
+    from geosongpu_tpu_torch.ops.kernels.columns import fill_q2_zero
+    from geosongpu_tpu_torch.ops.kernels.microphysics import \
+        gfdl_microphysics
+
+    cfg = DycoreConfig(npx=8, npz=12, dt=1200.0, n_split=4, ntracers=3,
+                       pallas_dycore=True, pallas_microphysics=True)
+    m_cpu = aquaplanet.build_model(cfg, "cpu")
+    m_gpu = aquaplanet.build_model(cfg, cuda)
+    start = state_to_numpy(m_cpu.init(perturb=3.0))
+    rng = np.random.default_rng(5)
+    lead = start["q"].shape[:-1]
+    start["q"][..., 0] *= (1.0 + 0.9 * rng.random(lead)).astype(np.float32)
+    start["q"][..., 1] = (3e-4 * rng.random(lead)).astype(np.float32)
+    start["q"][..., 2] = (1e-4 * rng.random(lead)).astype(np.float32)
+    a = state_to_numpy(m_cpu.run(state_from_numpy(start, "cpu"), 3))
+    kernels = [dsw.dsw_csw1, dsw.dsw_tracer_acc, remap_banded, fill_q2_zero,
+               gfdl_microphysics]
+    before = [k.launches for k in kernels]
+    b = state_to_numpy(m_gpu.run(state_from_numpy(start, cuda), 3))
+    assert [k.launches - b0 for k, b0 in zip(kernels, before)] \
+        == [3 * n for n in (cfg.n_split, 3 * cfg.q_split, 3, 3, 1)]
+    for f in ("u", "v", "delp", "pt", "ps"):
+        scale = float(np.abs(a[f]).max())
+        atol = 6e-3 if f in ("u", "v") else 0.0
+        assert float(np.abs(a[f] - b[f]).max()) <= max(1e-4 * scale, atol), f
+    qv_max = float(np.abs(a["q"][..., 0]).max())
+    assert float(np.abs(a["q"] - b["q"]).max()) <= 1e-4 * qv_max
+    assert b["q"][..., 1].max() > 1e-4 and b["q"][..., 2].max() > 1e-5

@@ -49,7 +49,10 @@ def test_sources_found():
         "device.py", "ops/kernels/remap.py", "dycore/sw.py",
         "dycore/nh_solver.py", "core/grid.py", "core/topology.py",
         "core/config.py", "core/vertical.py", "models/held_suarez.py",
-        "cli.py")} | {"chip_smoke.py"} <= names
+        "cli.py", "physics/thermo.py", "physics/standalone.py",
+        "physics/standalone_gate.py", "models/aquaplanet.py",
+        "ops/kernels/columns.py", "ops/kernels/microphysics.py",
+        "ops/kernels/standalone_twins.py")} | {"chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -85,6 +88,40 @@ def test_make_remap_for_cuda_raises_without_cuda():
 
     with pytest.raises(RuntimeError):
         _make_remap(DycoreConfig(remap_band=6), torch.device("cuda"))
+
+
+def test_aquaplanet_kernel_path_for_cuda_raises_without_cuda():
+    """pallas_microphysics on a CUDA device needs the built library: the
+    model is refused where there is no card, not run on plain versions."""
+    _no_cuda_here()
+    from geosongpu_tpu_torch.cli import PRESETS
+    from geosongpu_tpu_torch.models.aquaplanet import build_model
+
+    small = dataclasses.replace(PRESETS["aquaplanet_c48_l32_fused"], npx=8,
+                                npz=8)
+    with pytest.raises(RuntimeError):
+        build_model(small, torch.device("cuda"))
+
+
+def test_every_kernel_source_has_a_counting_wrapper():
+    """Each csrc/*.cu entry `<name>_f32` is launched by a wrapper `<name>`
+    with a `launches` counter and a `<name>_plain` beside it."""
+    from geosongpu_tpu_torch.ops.kernels import (columns, dsw, microphysics,
+                                                 remap, standalone_twins)
+
+    modules = (columns, dsw, microphysics, remap, standalone_twins)
+    entries = set()
+    for src in (PKG / "csrc").glob("*.cu"):
+        entries |= set(re.findall(r'extern "C" int (\w+)_f32\(',
+                                  src.read_text()))
+    assert len(entries) == 15
+    for name in entries:
+        owners = [m for m in modules if hasattr(m, name)]
+        assert len(owners) == 1, name
+        assert isinstance(getattr(owners[0], name).launches, int), name
+        plain = "remap_fields_banded" if name == "remap_banded" \
+            else name + "_plain"
+        assert hasattr(owners[0], plain), name
 
 
 def test_wrapper_on_cpu_runs_plain_version_and_counts_nothing():
@@ -152,7 +189,9 @@ def test_main_path_config_is_supported():
     from geosongpu_tpu_torch.cli import PRESETS
     from geosongpu_tpu_torch.dycore.fv_dynamics import check_supported
 
-    assert sorted(PRESETS) == ["held_suarez_c192_l72_fused",
+    assert sorted(PRESETS) == ["aquaplanet_c48_l32",
+                               "aquaplanet_c48_l32_fused",
+                               "held_suarez_c192_l72_fused",
                                "held_suarez_c48_l72",
                                "held_suarez_c48_l72_fused",
                                "held_suarez_c48_l72_nh_fused"]
