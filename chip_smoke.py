@@ -16,7 +16,9 @@ on any failure (and when no CUDA device is present).  Phases:
    chain of plain versions): the five hydrostatic kernels at c48-L72; the
    nonhydrostatic forms (dsw_transport with w and delz, dsw_tracer,
    dsw_nh_pert, dsw_wind with the p', phi', rho terms) at c48-L72 on a
-   nonhydrostatic state; the blend form of dsw_wind at c192-L72.
+   nonhydrostatic state; at c192-L72, where the card and not the host
+   sets the time, the five kernels the c192 preset launches (dsw_wind in
+   its blend form).
    dsw_csw1, dsw_transport, dsw_tracer and dsw_tracer_acc within 1e-5 of
    max|plain|; dsw_csw2, dsw_wind and dsw_nh_pert within max(1e-4
    max|plain|, 2e-3), for the column-sum order;
@@ -50,7 +52,9 @@ on any failure (and when no CUDA device is present).  Phases:
 
 Phases 3 to 5 print the median time of 20 calls (10 at c192), kernel and
 plain.  The second-to-last line is the kernels JSON object, the last line
-{"ok": true, "device": {...}}.  `launches` in that object is the count of
+{"ok": true, "device": {...}}; the c192-L72 rows of the other four substep
+kernels go on a line of their own before those, {"kernels_c192": [...]},
+with the same keys.  `launches` in the kernels object is the count of
 the fused Held-Suarez path (c192 and nonhydrostatic for those forms), of
 the fused aquaplanet path for gfdl_microphysics and fill_q2_zero, and of
 the gate path for the five kernels only the gate runs.
@@ -136,8 +140,8 @@ OPS_PER_POINT = {
 }
 # The PaddedMetrics fields each kernel (and form) reads: the met(m, X, ...)
 # uses of its source and of the csrc/dsw_common.cuh stages it launches
-# (fvtp2d, hydro_columns, chart_resample, corner_w).  The bound counts these
-# metric arrays and no other.  dsw_wind's rotational damping (VTX_METRICS)
+# (fvtp2d, hydro_columns).  The bound counts these metric arrays and no
+# other.  dsw_wind's rotational damping (VTX_METRICS)
 # is off in every preset and in the timed calls.
 FVTP2D_METRICS = ("area", "dx", "dy", "rdxc", "rdyc")
 WIND_METRICS = ("phis", "dw00", "dw01", "dw10", "dw11", "rsin2_cn",
@@ -161,9 +165,9 @@ METRICS_READ = {
     **{k: () for k in COLUMN_PHYSICS},
 }
 # __global__ stages of csrc/*.cu, as the profiler names them
-PORT_STAGES = ("::csw1(", "::csw2_", "::fv_inner(", "::fv_flux(",
+PORT_STAGES = ("::csw1(", "::csw2_winds(", "::fv_inner(", "::fv_flux(",
                "::transport_update(", "::nh_transport_update(",
-               "::tracer_update(", "::tracer_sub_update(", "::wind_update(",
+               "::tracer_update(", "::tracer_sub_update(", "::wind_update<",
                "::blend_divergence(", "::hydro_columns(", "::nh_columns(",
                "::remap_banded_kernel<", "::gfdl_microphysics_columns(",
                "::fill_q2_zero_columns(", "::aer_activation_points(",
@@ -172,6 +176,8 @@ PORT_STAGES = ("::csw1(", "::csw2_", "::fv_inner(", "::fv_flux(",
 # arguments a wrapper takes and checks but whose values no term reads
 UNREAD = {"aer_activation": (2, 3), "moist_rad_coup": (2,),
           "buoyancy": (2,)}
+# beside the blend dsw_wind: also checked and timed at c192-L72
+C192_KERNELS = ["dsw_csw1", "dsw_csw2", "dsw_transport", "dsw_tracer_acc"]
 GATE_SHAPE, RAGGED_SHAPE = (128, 40), (123, 16)
 AQUA_COLUMNS = 6 * 48 * 48           # 13,824; c192: 221,184
 # preset -> (label, steps timed after 3 warm-up steps, launches per step)
@@ -366,7 +372,8 @@ def check_kernels(torch, dsw, args, names, form, card, results, reps=20):
         k_ms = median_ms(torch, lambda: kern(*a), reps=reps)
         p_ms = median_ms(torch, lambda: plain(*a), reps=reps)
         by = bound(key if key in OPS_PER_POINT else kname,
-                   tensors_of(torch, a, METRICS_READ[key]), got)
+                   tensors_of(torch, a, METRICS_READ.get(
+                       key, METRICS_READ[kname])), got)
         b_ms, b_by = max(by), ("bytes" if by[0] >= by[1] else "operations")
         results[key] = (err, k_ms, p_ms, b_ms, b_by)
         print(f"[kernel] {key} {tuple(got[0].shape)}: max abs err "
@@ -709,6 +716,15 @@ def profile_steps(torch, model, label, card, steps=2):
           f"device events/step; the port's kernels "
           f"{sum(t for t, _ in ours) / steps / 1e3:.2f} ms/step in "
           f"{sum(c for _, c in ours) / steps:.0f} launches/step ({card})")
+    stages = {}
+    for n, (t, c) in stats.items():
+        for stage in PORT_STAGES:
+            if stage in n:
+                stages[stage[2:-1]] = (t, c)
+    print(f"[profile] {label}: the port's stages, ms/step (launches/step): "
+          + ", ".join(f"{k} {t / steps / 1e3:.3f} ({c / steps:.0f})"
+                      for k, (t, c) in sorted(stages.items(),
+                                              key=lambda kv: -kv[1][0])))
     top = sorted(stats.items(), key=lambda kv: -kv[1][0])[:12]
     for name, (t, c) in top:
         print(f"[profile]   {t / steps / 1e3:8.3f} ms/step {c / steps:7.0f}"
@@ -819,6 +835,8 @@ def main() -> int:
                          dev, steps=1)
     check_kernels(torch, dsw, args, ["dsw_wind"], "blend", card, results,
                   reps=10)
+    check_kernels(torch, dsw, args, C192_KERNELS, "c192", card, results,
+                  reps=10)
     del args, a
     torch.cuda.empty_cache()
 
@@ -868,19 +886,24 @@ def main() -> int:
     for key, k, path in entries:
         if launches[path][k] < 1:
             fail(f"{key}: not launched on the {path} path")
-    print(json.dumps({"kernels": [{
-        "name": key,
-        "route": "cuda",
-        "source": f"geosongpu_tpu_torch/csrc/{KERNELS[k][0]}",
-        "replaces": KERNELS[k][1],
-        "launches": launches[path][k],
-        "max_abs_err": results[key][0],
-        "ms": results[key][1],
-        "plain_ms": results[key][2],
-        "bound_ms": results[key][3],
-        "bound_by": results[key][4],
-        "library_ms": None,
-    } for key, k, path in entries]}))
+    def rows(entries):
+        return [{
+            "name": key,
+            "route": "cuda",
+            "source": f"geosongpu_tpu_torch/csrc/{KERNELS[k][0]}",
+            "replaces": KERNELS[k][1],
+            "launches": launches[path][k],
+            "max_abs_err": results[key][0],
+            "ms": results[key][1],
+            "plain_ms": results[key][2],
+            "bound_ms": results[key][3],
+            "bound_by": results[key][4],
+            "library_ms": None,
+        } for key, k, path in entries]
+
+    print(json.dumps({"kernels_c192": rows(
+        [(f"{k} c192", k, "c192") for k in C192_KERNELS])}))
+    print(json.dumps({"kernels": rows(entries)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

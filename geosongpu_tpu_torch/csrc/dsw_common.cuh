@@ -21,8 +21,10 @@
 //   constants are rounded to float32 exactly as PyTorch rounds a scalar
 //   operand of a float32 tensor.
 // * Horizontal stages run one thread per (f, j, i, k) point, k fastest,
-//   so that a warp reads neighbouring addresses; column stages run one
-//   thread per (f, j, i) column walking K.
+//   so that a warp reads neighbouring addresses; those of dsw_csw2 and
+//   dsw_wind work on shared-memory tiles of points.  The column stage of
+//   these two takes a tile of neighbouring columns per block; nh_columns
+//   (dsw_nh_pert.cu) still runs one thread per column walking K.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -120,14 +122,20 @@ __host__ __forceinline__ unsigned blocks_for(long long n) {
 
 // ---- PPM (ops/ppm.py) ------------------------------------------------
 
+// The PPM functions take a line of cells as any type with operator()(cell)
+// and the line's length n: a Line of device memory or a TileLine of a
+// staged tile.
+
 // _edges_ord4: al[c] = 7/12 (q[c-1] + q[c]) - 1/12 (q[c-2] + q[c+1])
-__device__ __forceinline__ float edge_ord4(const Line& q, int c) {
+template <class L>
+__device__ __forceinline__ float edge_ord4(const L& q, int c) {
   return kC712 * (q(c - 1) + q(c)) - kC112 * (q(c - 2) + q(c + 1));
 }
 
 // _ppm_coeffs at cell c: edges aL, aR (aR = al shifted by +1 with edge
 // replication), limited for hord 8, and a6.
-__device__ __forceinline__ void ppm_coeffs(const Line& q, int c, int hord,
+template <class L>
+__device__ __forceinline__ void ppm_coeffs(const L& q, int c, int hord,
                                            float& aL, float& aR, float& a6) {
   const float qc = q(c);
   aL = edge_ord4(q, c);
@@ -148,7 +156,8 @@ __device__ __forceinline__ void ppm_coeffs(const Line& q, int c, int hord,
 }
 
 // ppm_flux at interface i (between cells i-1 and i) of a line, Courant c.
-__device__ __forceinline__ float ppm_flux(const Line& q, int i, float c,
+template <class L>
+__device__ __forceinline__ float ppm_flux(const L& q, int i, float c,
                                           int hord) {
   float aL, aR, a6;
   if (c >= 0.0f) {
@@ -168,98 +177,239 @@ __device__ __forceinline__ float upwind(const Line& q, int i, float c) {
 
 // ---- staggering helpers (dycore/sw.py) -----------------------------------
 
-// _resample_to_chart at cell (j, i): the y-strip 3-point resample, then the
-// x-strip resample of the y-resampled values.
-__device__ __forceinline__ float chart_y(const Arr& a, const Metrics& m,
-                                         int f, int j, int i, int k) {
-  const float c = a(f, j, i, k);
-  return c + (met(m, JWM, f, j, i) * (a.c(f, j - 1, i, k) - c) +
-              met(m, JWP, f, j, i) * (a.c(f, j + 1, i, k) - c));
-}
-
-__device__ __forceinline__ float chart_resample(const Arr& a,
-                                                const Metrics& m, int f,
-                                                int j, int i, int k) {
-  const float c = chart_y(a, m, f, j, i, k);
-  const float w = chart_y(a, m, f, j, clampi(i - 1, 0, a.C - 1), k);
-  const float e = chart_y(a, m, f, j, clampi(i + 1, 0, a.C - 1), k);
-  return c + (met(m, IWM, f, j, i) * (w - c) + met(m, IWP, f, j, i) * (e - c));
-}
-
-// _center_to_corner_w at corner (jc, ic) from the four surrounding centre
-// values: the 4-point average plus sum_k dw_k (a_k - avg4).
+// _center_to_corner_w from the four centre values around a corner and the
+// corner's weights DW00 .. DW11: the 4-point average plus
+// sum_k dw_k (a_k - avg4).
 __device__ __forceinline__ float corner_w4(float a00, float a01, float a10,
-                                           float a11, const Metrics& m, int f,
-                                           int jc, int ic) {
+                                           float a11, float dw00, float dw01,
+                                           float dw10, float dw11) {
   const float avg4 = 0.25f * (a00 + a01 + a10 + a11);
-  return avg4 + (met(m, DW00, f, jc, ic) * (a00 - avg4) +
-                 met(m, DW01, f, jc, ic) * (a01 - avg4) +
-                 met(m, DW10, f, jc, ic) * (a10 - avg4) +
-                 met(m, DW11, f, jc, ic) * (a11 - avg4));
+  return avg4 + (dw00 * (a00 - avg4) + dw01 * (a01 - avg4) +
+                 dw10 * (a10 - avg4) + dw11 * (a11 - avg4));
 }
 
-// ... of a centre array, over its edge-padded cells.
-__device__ __forceinline__ float corner_w(const Arr& a, const Metrics& m,
-                                          int f, int jc, int ic, int k) {
-  return corner_w4(a.c(f, jc - 1, ic - 1, k), a.c(f, jc - 1, ic, k),
-                   a.c(f, jc, ic - 1, k), a.c(f, jc, ic, k), m, f, jc, ic);
+// ---- shared-memory tiles of the horizontal stencil stages ------------------
+//
+// csw2_winds (dsw_csw2.cu) and wind_update (dsw_wind.cu) give one block a
+// tile of kTJ x kTI output points of one face and walk K in chunks of kTK
+// levels; the thread index runs over the chunk's levels first, then i, then
+// j, so a warp still reads runs along K.  Per chunk the block stages the
+// centre cells its points need (the tile and a rim) in shared memory,
+// derives each resampled or corner value once per cell of the tile there,
+// and only then forms its points.  A staged cell outside the face holds the
+// value at the clamped index, as Arr::c reads it; the derived values of such
+// cells are never used by a point that is written.  What depends on (j, i)
+// alone - offsets, metric weights - is set up once per thread and reused
+// over the chunks, and the next chunk's cells are fetched into registers
+// while this chunk is computed.
+constexpr int kTJ = 8, kTI = 8, kTK = 8;
+constexpr int kTileThreads = kTJ * kTI * kTK;
+
+__host__ __forceinline__ dim3 tile_grid(int F, int R, int C) {
+  return dim3((unsigned)((C + kTI - 1) / kTI), (unsigned)((R + kTJ - 1) / kTJ),
+              (unsigned)F);
+}
+
+// Offset of level 0 of cell (j, i) of face f in an [F, R, C, K] array;
+// check_grid keeps every such offset below 2^31.
+__device__ __forceinline__ int cell_off(int R, int C, int K, int f, int j,
+                                        int i) {
+  return ((f * R + j) * C + i) * K;
+}
+
+// ... of a PaddedMetrics field.
+__device__ __forceinline__ float met32(const Metrics& m, int id, int f, int j,
+                                       int i) {
+  return m.p[id][(f * m.rows[id] + j) * m.cols[id] + i];
+}
+
+// Offset of level lane kl of tile cell (jj, ii) in a staged tile NI cells
+// wide.
+__device__ __forceinline__ int tile_at(int NI, int jj, int ii, int kl) {
+  return (jj * NI + ii) * kTK + kl;
+}
+
+// A thread's share of staging NJ x NI cells x kTK levels of an array: element
+// e = threadIdx.x + r kTileThreads of the tile, r < kPer, is level lane
+// threadIdx.x % kTK of cell e / kTK.
+template <int NJ, int NI>
+struct StagePlan {
+  static constexpr int kCount = NJ * NI * kTK;
+  static constexpr int kPer = (kCount + kTileThreads - 1) / kTileThreads;
+  int g[kPer];  // cell_off of the clamped cell; -1 past the tile
+
+  // The tile starts at cell (jb, ib) of face f of an [F, R, C, K] array.
+  __device__ __forceinline__ void init(int R, int C, int K, int f, int jb,
+                                       int ib) {
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int e = threadIdx.x + r * kTileThreads;
+      const int cell = e / kTK;
+      const int cj = clampi(jb + cell / NI, 0, R - 1);
+      const int ci = clampi(ib + cell % NI, 0, C - 1);
+      g[r] = e < kCount ? cell_off(R, C, K, f, cj, ci) : -1;
+    }
+  }
+  // Level k of the thread's cells of array p, into registers.
+  __device__ __forceinline__ void fetch(float (&v)[kPer],
+                                        const float* __restrict__ p,
+                                        int k) const {
+#pragma unroll
+    for (int r = 0; r < kPer; ++r)
+      if (g[r] >= 0) v[r] = p[g[r] + k];
+  }
+  // ... from registers into the staged tile.
+  __device__ __forceinline__ void commit(float* __restrict__ tile,
+                                         const float (&v)[kPer]) const {
+#pragma unroll
+    for (int r = 0; r < kPer; ++r)
+      if (g[r] >= 0) tile[threadIdx.x + r * kTileThreads] = v[r];
+  }
+};
+
+// One line of cells through a staged tile: cell c of the face's line of n
+// cells, clamped to the line like Line, lies at base[(c - first) stride].
+struct TileLine {
+  const float* base;
+  int stride, first, n;
+  __device__ __forceinline__ float operator()(int c) const {
+    return base[(clampi(c, 0, n - 1) - first) * stride];
+  }
+};
+
+// Stage the NJ x NI values of metric `id` that start at (jb, ib), clamped
+// to the field: s[jj * NI + ii].  They do not depend on the level, so a
+// block stages them once.
+template <int NJ, int NI>
+__device__ __forceinline__ void stage_metric(float* __restrict__ s,
+                                             const Metrics& m, int id, int f,
+                                             int jb, int ib) {
+  for (int e = threadIdx.x; e < NJ * NI; e += kTileThreads)
+    s[e] = met32(m, id, f, clampi(jb + e / NI, 0, m.rows[id] - 1),
+                 clampi(ib + e % NI, 0, m.cols[id] - 1));
 }
 
 // ---- column integral (dycore/sw.py::_hydrostatic_fields) -------------
 //
-// One thread per (f, j, i) column walks K: pe = ptop + cumsum(delp),
-// pk = (pe / P00)^kappa, peln = log(pe), pkz = dpk / (kappa dpeln),
-// phi = rcumsum(cp pt dpk) - cp pt dpk / 2, + phis.  This is the port's
-// plain form (pow and log), not the TPU kernel's exp(kappa (ln pe -
-// ln P00)) form.  The running sums are kept in double and rounded once, as
-// the plain version's cumsum_k does (ops/vertical.py), and pe / P00 is
-// pe * (1/P00), the form PyTorch evaluates a division by a Python scalar
-// in on the card.  Both matter: dpk of a thin layer is a difference of
-// nearly equal pk, so one ulp of pe moves pkz by up to ~1e-4 relative and
-// the substep winds by up to ~1e-2 m/s at c48-L72.  phi holds cp pt dpk
-// between the two passes.
-__global__ void __launch_bounds__(kThreads)
-hydro_columns(Metrics m, int F, Arr delp, const float* __restrict__ pt,
-              float ptop, float p00, float kappa, float cp_air,
-              float* __restrict__ pkz, float* __restrict__ phi) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int R = delp.R, C = delp.C, K = delp.K;
-  if (t >= (long long)F * R * C) return;
-  const int i = (int)(t % C);
-  const int j = (int)((t / C) % R);
-  const int f = (int)(t / ((long long)R * C));
-  const long long base = t * K;
-  const float rp00 = 1.0f / p00;
-  double s = 0.0;
-  float pk_lo = powf(ptop * rp00, kappa);
-  float ln_lo = logf(ptop);
-  for (int k = 0; k < K; ++k) {
-    s += (double)delp.p[base + k];
-    const float pe_hi = ptop + (float)s;
-    const float pk_hi = powf(pe_hi * rp00, kappa);
-    const float ln_hi = logf(pe_hi);
-    const float dpk = pk_hi - pk_lo;
-    pkz[base + k] = dpk / (kappa * (ln_hi - ln_lo));
-    phi[base + k] = cp_air * pt[base + k] * dpk;
-    pk_lo = pk_hi;
-    ln_lo = ln_hi;
-  }
-  const float phis = met(m, PHIS, f, j, i);
-  double acc = 0.0;
-  for (int k = K - 1; k >= 0; --k) {
-    const float dphi = phi[base + k];
-    acc += (double)dphi;
-    phi[base + k] = ((float)acc - 0.5f * dphi) + phis;
+// pe = ptop + cumsum(delp), pk = (pe / P00)^kappa, peln = log(pe),
+// pkz = dpk / (kappa dpeln), phi = rcumsum(cp pt dpk) - cp pt dpk / 2,
+// + phis.  This is the port's plain form (pow and log), not the TPU
+// kernel's exp(kappa (ln pe - ln P00)) form.  The running sums are kept in
+// double and rounded once, as the plain version's cumsum_k does
+// (ops/vertical.py), and pe / P00 is pe * (1/P00), the form PyTorch
+// evaluates a division by a Python scalar in on the card.  Both matter: dpk
+// of a thin layer is a difference of nearly equal pk, so one ulp of pe
+// moves pkz by up to ~1e-4 relative and the substep winds by up to ~1e-2
+// m/s at c48-L72.
+//
+// A block takes kColTile neighbouring columns: their C x K values are one
+// contiguous run of each [F, R, C, K] array, so every global read and write
+// is a run along K shared by a warp, and phi is written once.  Only the two
+// running sums couple the levels of a column, so only they are walked by
+// one thread per column (from shared memory, in the order of the plain
+// version, hence the same bits); pow, log and the layer formulas run over
+// all (column, level) points of the tile with every thread.  A row of the
+// tile is padded to an odd number of floats, so the column walks of a warp
+// fall in different banks.
+constexpr int kColThreads = 128;
+constexpr int kColTile = 32;
+
+// fn(e, c, k) for the elements e = threadIdx.x + r kColThreads < n of a
+// tile of columns: level k of the tile's column c; (c, k) advance without a
+// division.
+template <class Fn>
+__device__ __forceinline__ void for_tile_elements(int n, int K, Fn fn) {
+  int c = threadIdx.x / K, k = threadIdx.x % K;
+  const int c_step = kColThreads / K, k_step = kColThreads % K;
+  for (int e = threadIdx.x; e < n; e += kColThreads) {
+    fn(e, c, k);
+    c += c_step;
+    k += k_step;
+    if (k >= K) {
+      k -= K;
+      ++c;
+    }
   }
 }
 
+__global__ void __launch_bounds__(kColThreads)
+hydro_columns(const float* __restrict__ phis, long long ncol, int K, int C,
+              const float* __restrict__ delp, const float* __restrict__ pt,
+              float ptop, float p00, float kappa, float cp_air,
+              float* __restrict__ pkz, float* __restrict__ phi) {
+  extern __shared__ float col_smem[];
+  const int Kp = K | 1;
+  float* a = col_smem;    // delp, then pe, then log pe, of the lower interface
+  float* b = a + C * Kp;  // pk of the lower interface
+  float* d = b + C * Kp;  // pt, then cp pt dpk, then phi
+  const long long col0 = (long long)blockIdx.x * C;
+  const int nc = (int)min((long long)C, ncol - col0);
+  const int n = nc * K;
+  const long long base = col0 * K;
+  const int tid = threadIdx.x;
+
+  for_tile_elements(n, K, [&](int e, int c, int k) {
+    a[c * Kp + k] = delp[base + e];
+    d[c * Kp + k] = pt[base + e];
+  });
+  __syncthreads();
+  if (tid < nc) {
+    float* col = a + tid * Kp;
+    double s = 0.0;
+    for (int k = 0; k < K; ++k) {
+      s += (double)col[k];
+      col[k] = ptop + (float)s;
+    }
+  }
+  __syncthreads();
+  const float rp00 = 1.0f / p00;
+  for_tile_elements(n, K, [&](int, int c, int k) {
+    const float pe = a[c * Kp + k];
+    b[c * Kp + k] = powf(pe * rp00, kappa);
+    a[c * Kp + k] = logf(pe);
+  });
+  __syncthreads();
+  const float pk_top = powf(ptop * rp00, kappa);
+  const float ln_top = logf(ptop);
+  for_tile_elements(n, K, [&](int e, int c, int k) {
+    const int o = c * Kp + k;
+    const float dpk = b[o] - (k > 0 ? b[o - 1] : pk_top);
+    const float dln = a[o] - (k > 0 ? a[o - 1] : ln_top);
+    pkz[base + e] = dpk / (kappa * dln);
+    d[o] = cp_air * d[o] * dpk;
+  });
+  __syncthreads();
+  if (tid < nc) {
+    float* col = d + tid * Kp;
+    const float ps = phis[col0 + tid];
+    double acc = 0.0;
+    for (int k = K - 1; k >= 0; --k) {
+      const float dphi = col[k];
+      acc += (double)dphi;
+      col[k] = ((float)acc - 0.5f * dphi) + ps;
+    }
+  }
+  __syncthreads();
+  for_tile_elements(n, K, [&](int e, int c, int k) {
+    phi[base + e] = d[c * Kp + k];
+  });
+}
+
+// pkz and phi (+ phis) of every column of delp, pt [F, Ny, Nx, K].  The
+// tile shrinks for a K whose three rows of 32 columns would not fit the 48
+// KB of shared memory a launch gets without opting in.
 __host__ __forceinline__ cudaError_t launch_hydro(
     const Metrics& m, int F, int Ny, int Nx, int K, const float* delp,
     const float* pt, float ptop, float p00, float kappa, float cp_air,
     float* pkz, float* phi, cudaStream_t s) {
-  const Arr d = {delp, Ny, Nx, K};
-  hydro_columns<<<blocks_for((long long)F * Ny * Nx), kThreads, 0, s>>>(
-      m, F, d, pt, ptop, p00, kappa, cp_air, pkz, phi);
+  int C = kColTile;
+  const size_t row = 3 * (size_t)(K | 1) * sizeof(float);
+  while (C > 1 && C * row > 48 * 1024) C /= 2;
+  if (C * row > 48 * 1024) return cudaErrorInvalidValue;
+  const long long ncol = (long long)F * Ny * Nx;
+  const unsigned blocks = (unsigned)((ncol + C - 1) / C);
+  hydro_columns<<<blocks, kColThreads, C * row, s>>>(
+      m.p[PHIS], ncol, K, C, delp, pt, ptop, p00, kappa, cp_air, pkz, phi);
   return cudaGetLastError();
 }
 

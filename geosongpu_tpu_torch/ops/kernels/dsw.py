@@ -236,13 +236,12 @@ def dsw_csw2(uc, vc, delp_h, pt_h, ke, vort, m: PaddedMetrics, ptop: float,
                              ("delp_h", delp_h, c), ("pt_h", pt_h, c),
                              ("ke", ke, c), ("vort", vort, c)])
     ms = _metrics("dsw_csw2", m, F, Ny, Nx, dev)
-    scratch = torch.empty((7,) + c, dtype=torch.float32, device=dev)
-    uct = torch.empty(xi, dtype=torch.float32, device=dev)
-    vct = torch.empty(yi, dtype=torch.float32, device=dev)
-    _launch("dsw_csw2", "Piiii" + "P" * 6 + "fffff" + "PPP", dev,
+    e = lambda shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    pkz, phi, uct, vct = e(c), e(c), e(xi), e(yi)
+    _launch("dsw_csw2", "Piiii" + "P" * 6 + "fffff" + "PPPP", dev,
             [ctypes.addressof(ms), F, Ny, Nx, K,
              *_ptrs(uc, vc, delp_h, pt_h, ke, vort), ptop, P00, KAPPA,
-             CP_AIR, dt2, *_ptrs(scratch, uct, vct)])
+             CP_AIR, dt2, *_ptrs(pkz, phi, uct, vct)])
     dsw_csw2.launches += 1
     return uct, vct
 

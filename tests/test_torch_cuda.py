@@ -270,6 +270,32 @@ def test_dsw_kernel_matches_plain_non_square(cuda, case):
     _within_gate(name, got, getattr(dsw, name + "_plain")(*a))
 
 
+# dsw_csw2 and dsw_wind work on tiles: 32 columns per block in the column
+# stage, 8 x 8 points x 8 levels in the horizontal stages.  Faces whose
+# column count, Ny + 1, Nx + 1 and K are no multiples of the tiles, and one
+# whose corners fill the tiles exactly; K below, at and above a chunk, odd,
+# and the presets' 32 and 72.
+TILE_FACES = [(2, 10, 13), (1, 15, 7), (1, 4, 5)]
+TILE_CASES = ["dsw_csw2", "dsw_wind", "dsw_wind blend", "dsw_wind nh"]
+
+
+@pytest.mark.parametrize("K", [8, 32, 33, 72])
+@pytest.mark.parametrize("face", TILE_FACES,
+                         ids=["x".join(map(str, f)) for f in TILE_FACES])
+@pytest.mark.parametrize("case", TILE_CASES)
+def test_dsw_tile_edges_match_plain(cuda, case, face, K):
+    """The tiled kernels equal their plain versions in every element, also
+    at the ragged edges of the tiles."""
+    name = case.split()[0]
+    a = _synthetic_args(case, *face, K, seed=7, dev=cuda)
+    got = getattr(dsw, name)(*a)
+    torch.cuda.synchronize()
+    want = getattr(dsw, name + "_plain")(*a)
+    for n, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and bool(g.isfinite().all()), (case, n)
+        assert float((g - w).abs().max()) == 0.0, (case, n)
+
+
 def test_nh_wind_launches_the_column_stage(cuda):
     """The nonhydrostatic dsw_wind runs dsw_nh_pert first, once."""
     a = _synthetic_args("dsw_wind nh", 1, 6, 7, 4, seed=5, dev=cuda)

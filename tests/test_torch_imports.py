@@ -203,7 +203,12 @@ def test_main_path_config_is_supported():
 def _metric_uses(name: str):
     """The PaddedMetrics fields a csrc file reads: its met(m, X, ...) uses."""
     text = (PKG / "csrc" / name).read_text()
-    return {x.lower() for x in re.findall(r"met\(m, ([A-Z0-9_]+),", text)}
+    # met / met32 reads, metrics staged into a tile, and a field's pointer
+    # handed to a stage (m.p[PHIS])
+    found = re.findall(r"met(?:32)?\(m, ([A-Z0-9_]+),", text)
+    found += re.findall(r"stage_metric<[^>]+>\([^,]+, m, ([A-Z0-9_]+),", text)
+    found += re.findall(r"m\.p\[([A-Z][A-Z0-9_]*)\]", text)
+    return {x.lower() for x in found}
 
 
 def test_chip_smoke_counts_only_the_metrics_a_kernel_reads():
