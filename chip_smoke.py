@@ -4,13 +4,23 @@
     python3 chip_smoke.py
 
 Runs from the root of a checkout, needs one CUDA card, and exits non-zero
-on any failure (and when no CUDA device is present).  Phases:
+on any failure (and when no CUDA device is present).
+
+    python3 chip_smoke.py --stages
+
+runs phases 1 and 2 and then only the per-stage view of the fvtp2d
+callers and dsw_csw1 (STAGE_KERNELS): each against its plain version,
+which it must equal (0.0), its median time and, from a torch.profiler
+window of 10 calls, the device time of each __global__ stage it launches.
+Run it from copies of two trees in one call to compare their kernels.
+Without arguments, the phases:
 
 1. device: the card's name and power limit (nvidia-smi), the toolchain;
 2. build: the one kernel library from the checkout's csrc/ sources, with
    ptxas registers and spills per kernel;
 3. remap_banded against its plain PyTorch version at the three c48-L72
-   main-path shapes (max error relative to the plain output <= 1e-5);
+   main-path shapes (max error relative to the plain output <= 1e-5), and
+   with 6 fields, more than one launch takes (two launches);
 4. the substep kernels against their plain versions, over the whole padded
    outputs, on inputs from a real state (init + 2 steps, then the substep
    chain of plain versions): the five hydrostatic kernels at c48-L72; the
@@ -165,7 +175,7 @@ METRICS_READ = {
     **{k: () for k in COLUMN_PHYSICS},
 }
 # __global__ stages of csrc/*.cu, as the profiler names them
-PORT_STAGES = ("::csw1(", "::csw2_winds(", "::fv_inner(", "::fv_flux(",
+PORT_STAGES = ("::csw1(", "::csw2_winds(", "::fvtp2d_tile<",
                "::transport_update(", "::nh_transport_update(",
                "::tracer_update(", "::tracer_sub_update(", "::wind_update<",
                "::blend_divergence(", "::hydro_columns(", "::nh_columns(",
@@ -173,6 +183,15 @@ PORT_STAGES = ("::csw1(", "::csw2_winds(", "::fv_inner(", "::fv_flux(",
                "::fill_q2_zero_columns(", "::aer_activation_points(",
                "::moist_rad_coup_points(", "::cup_gf_sh_points(",
                "::buoyancy_points(", "::evap_subl_pdf_points(")
+# --stages: preset -> (form, kernels, steps before the inputs are taken)
+STAGE_KERNELS = {
+    "held_suarez_c48_l72": ("c48", ["dsw_csw1", "dsw_transport",
+                                    "dsw_tracer_acc"], 2),
+    "held_suarez_c48_l72_nh_fused": ("nh", ["dsw_transport", "dsw_tracer"],
+                                     2),
+    "held_suarez_c192_l72_fused": ("c192", ["dsw_csw1", "dsw_transport",
+                                            "dsw_tracer_acc"], 1),
+}
 # arguments a wrapper takes and checks but whose values no term reads
 UNREAD = {"aer_activation": (2, 3), "moist_rad_coup": (2,),
           "buoyancy": (2,)}
@@ -380,6 +399,48 @@ def check_kernels(torch, dsw, args, names, form, card, results, reps=20):
               f"{err:.3e}, max rel err {rel:.3e}; kernel {k_ms:.4f} ms, plain "
               f"{p_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} (median of "
               f"{reps}; {card})")
+
+
+def device_times(prof):
+    """{device kernel name: (device us, launches)} of a torch.profiler
+    window."""
+    from torch.autograd import DeviceType
+
+    stats = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            t, c = stats.get(e.name, (0.0, 0))
+            stats[e.name] = (t + e.device_time_total, c + 1)
+    return stats
+
+
+def stage_times(torch, dsw, args, names, form, card, reps=20):
+    """--stages: each named kernel against its plain version (0.0 or a
+    failure), its median time over `reps` calls, and the device time per
+    launch of each __global__ it runs in a profiler window of 10 calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for name in names:
+        a = args[name]
+        kern, plain = getattr(dsw, name), getattr(dsw, name + "_plain")
+        got, want = kern(*a), plain(*a)
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        if err != 0.0:
+            fail(f"{name} {form}: {err:.3e} from its plain version")
+        ms = median_ms(torch, lambda: kern(*a), reps=reps)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                kern(*a)
+            torch.cuda.synchronize()
+        stages = {n.split("::")[1].split("(")[0]: tc
+                  for n, tc in device_times(prof).items()
+                  if any(s in n for s in PORT_STAGES)}
+        print(f"[stages] {name} {form} {tuple(a[0].shape)}: max abs err "
+              f"{err:.3e}; {ms:.4f} ms (median of {reps}); device ms per "
+              "launch: " + ", ".join(f"{k} {t / c / 1e3:.4f} x{c // 10}"
+                                     for k, (t, c) in stages.items())
+              + f" ({card})")
 
 
 def column_case(gate, name, d):
@@ -688,7 +749,6 @@ def card_vs_cpu(torch, np, pname, dev, label, size=(12, 8, 2), **changes):
 def profile_steps(torch, model, label, card, steps=2):
     """Device time, device events and the top ops over `steps` steps, after
     one profiled step that absorbs the profiler's own start-up."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -702,25 +762,22 @@ def profile_steps(torch, model, label, card, steps=2):
             s = model.step(s)
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / steps * 1e3
-    dev_events = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
-    stats = {}
-    for e in dev_events:
-        t, c = stats.get(e.name, (0.0, 0))
-        stats[e.name] = (t + e.device_time_total, c + 1)
+    stats = device_times(prof)
+    n_events = sum(c for _, c in stats.values())
     busy = sum(t for t, _ in stats.values()) / steps / 1e3
     ours = [(t, c) for n, (t, c) in stats.items()
             if any(s in n for s in PORT_STAGES)]
     print(f"[profile] {label}: wall {wall:.2f} ms/step under the profiler, "
-          f"device busy {busy:.2f} ms/step, {len(dev_events) / steps:.0f} "
+          f"device busy {busy:.2f} ms/step, {n_events / steps:.0f} "
           f"device events/step; the port's kernels "
           f"{sum(t for t, _ in ours) / steps / 1e3:.2f} ms/step in "
           f"{sum(c for _, c in ours) / steps:.0f} launches/step ({card})")
-    stages = {}
+    stages = {}  # instantiations of a template stage add up
     for n, (t, c) in stats.items():
         for stage in PORT_STAGES:
             if stage in n:
-                stages[stage[2:-1]] = (t, c)
+                t0, c0 = stages.get(stage[2:-1], (0.0, 0))
+                stages[stage[2:-1]] = (t0 + t, c0 + c)
     print(f"[profile] {label}: the port's stages, ms/step (launches/step): "
           + ", ".join(f"{k} {t / steps / 1e3:.3f} ({c / steps:.0f})"
                       for k, (t, c) in sorted(stages.items(),
@@ -773,6 +830,15 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s (nvcc {lib.build_seconds:.2f} s)"
           f" -> {lib.path.parent.name}/{lib.path.name}")
     print_build_log(lib.build_log)
+    if "--stages" in sys.argv[1:]:
+        for pname, (form, names, steps) in STAGE_KERNELS.items():
+            model = build_model_for(pname)(PRESETS[pname], dev)
+            args = kernel_inputs(torch, np, model, dev, steps=steps)
+            del model
+            stage_times(torch, dsw, args, names, form, card)
+            del args
+            torch.cuda.empty_cache()
+        return 0
     results = {}   # kernel [form] -> (max_abs_err, ms, plain_ms, bound_ms, by)
 
     # ---- 3. remap_banded against its plain version ------------------------
@@ -805,6 +871,26 @@ def main() -> int:
         print(f"[kernel] remap_banded {label} {nf}x{tuple(qs[0].shape)}: max "
               f"rel err {rel:.3e}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
               f"(median of 20; {card})")
+    # more fields than one launch takes (a nonhydrostatic run with two
+    # tracers remaps six): the wrapper groups them, two launches here
+    pe1, pe2 = displaced_coordinates(torch, shapes[0][1], K, band, gen, dev)
+    qs = [(300.0 * (1.0 + 0.1 * torch.randn(shapes[0][1] + (K,),
+                                             generator=gen, device=dev)))
+          .contiguous() for _ in range(6)]
+    before = kremap.remap_banded.launches
+    got = kremap.remap_banded(qs, pe1, pe2, preset.kord, band)
+    torch.cuda.synchronize()
+    if kremap.remap_banded.launches != before + 2:
+        fail("remap_banded: 6 fields did not take 2 launches")
+    err, rel = compare("remap_banded 6 fields", got,
+                       remap_fields_banded(qs, pe1, pe2, preset.kord, band),
+                       False)
+    k_ms = median_ms(torch, lambda: kremap.remap_banded(
+        qs, pe1, pe2, preset.kord, band))
+    print(f"[kernel] remap_banded 6 fields 6x{tuple(qs[0].shape)} (2 "
+          f"launches): max rel err {rel:.3e}; kernel {k_ms:.4f} ms (median "
+          f"of 20; {card})")
+    del qs, got
     print(f"[kernel] remap_banded, one step's 3 calls: kernel "
           f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{max(by):.4f} ms ({card})")

@@ -20,11 +20,13 @@
 //   hord-8 limiter branch cannot flip on an FMA rounding).  Python float
 //   constants are rounded to float32 exactly as PyTorch rounds a scalar
 //   operand of a float32 tensor.
-// * Horizontal stages run one thread per (f, j, i, k) point, k fastest,
-//   so that a warp reads neighbouring addresses; those of dsw_csw2 and
-//   dsw_wind work on shared-memory tiles of points.  The column stage of
-//   these two takes a tile of neighbouring columns per block; nh_columns
-//   (dsw_nh_pert.cu) still runs one thread per column walking K.
+// * The horizontal stencil stages (csw1, csw2_winds, fvtp2d_tile,
+//   wind_update) work on shared-memory tiles of points, k fastest, so that
+//   a warp reads neighbouring addresses; the per-cell updates and
+//   blend_divergence run one thread per (f, j, i, k) point.  The column
+//   stage of dsw_csw2 and dsw_wind takes a tile of neighbouring columns per
+//   block; nh_columns (dsw_nh_pert.cu) still runs one thread per column
+//   walking K.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -71,35 +73,11 @@ struct Arr {
                                               int k) const {
     return p[(((long long)f * R + j) * C + i) * K + k];
   }
-  // clamp-to-edge read
-  __device__ __forceinline__ float c(int f, int j, int i, int k) const {
-    return (*this)(f, clampi(j, 0, R - 1), clampi(i, 0, C - 1), k);
-  }
 };
 
 __device__ __forceinline__ long long off(int R, int C, int K, int f, int j,
                                          int i, int k) {
   return (((long long)f * R + j) * C + i) * K + k;
-}
-
-// One line of cells of an Arr along x (fixed f, j, k) or y (fixed f, i,
-// k); operator() clamps the cell index to the line, as _shift and _iface
-// replicate the edge cells.
-struct Line {
-  const float* base;
-  long long stride;
-  int n;
-  __device__ __forceinline__ float operator()(int c) const {
-    return base[(long long)clampi(c, 0, n - 1) * stride];
-  }
-};
-
-__device__ __forceinline__ Line line_x(const Arr& a, int f, int j, int k) {
-  return {a.p + off(a.R, a.C, a.K, f, j, 0, k), (long long)a.K, a.C};
-}
-
-__device__ __forceinline__ Line line_y(const Arr& a, int f, int i, int k) {
-  return {a.p + off(a.R, a.C, a.K, f, 0, i, k), (long long)a.C * a.K, a.R};
 }
 
 // Flat thread index -> (f, j, i, k) over [F, R, C, K], k fastest.
@@ -122,9 +100,8 @@ __host__ __forceinline__ unsigned blocks_for(long long n) {
 
 // ---- PPM (ops/ppm.py) ------------------------------------------------
 
-// The PPM functions take a line of cells as any type with operator()(cell)
-// and the line's length n: a Line of device memory or a TileLine of a
-// staged tile.
+// edge_ord4 and ppm_flux take a line of cells as any type with
+// operator()(cell) and the line's length n: a TileLine of a staged tile.
 
 // _edges_ord4: al[c] = 7/12 (q[c-1] + q[c]) - 1/12 (q[c-2] + q[c+1])
 template <class L>
@@ -132,14 +109,13 @@ __device__ __forceinline__ float edge_ord4(const L& q, int c) {
   return kC712 * (q(c - 1) + q(c)) - kC112 * (q(c - 2) + q(c + 1));
 }
 
-// _ppm_coeffs at cell c: edges aL, aR (aR = al shifted by +1 with edge
-// replication), limited for hord 8, and a6.
-template <class L>
-__device__ __forceinline__ void ppm_coeffs(const L& q, int c, int hord,
-                                           float& aL, float& aR, float& a6) {
-  const float qc = q(c);
-  aL = edge_ord4(q, c);
-  aR = edge_ord4(q, clampi(c + 1, 0, q.n - 1));
+// The PPM value at an interface with Courant number c from the upwind
+// cell's mean qc and edges aL, aR (aR = al shifted by +1 with edge
+// replication), as _ppm_coeffs (the hord-8 limiter, then a6) and ppm_flux
+// form it.
+__device__ __forceinline__ float ppm_value(float c, float qc, float aL,
+                                          float aR, int hord) {
+  float a6;
   if (hord == 8) {
     if ((aR - qc) * (qc - aL) <= 0.0f) {
       aL = qc;
@@ -153,25 +129,44 @@ __device__ __forceinline__ void ppm_coeffs(const L& q, int c, int hord,
     if (a6 * da < -da * da) aR = 3.0f * qc - 2.0f * aL;
   }
   a6 = 6.0f * (qc - 0.5f * (aL + aR));
-}
-
-// ppm_flux at interface i (between cells i-1 and i) of a line, Courant c.
-template <class L>
-__device__ __forceinline__ float ppm_flux(const L& q, int i, float c,
-                                          int hord) {
-  float aL, aR, a6;
   if (c >= 0.0f) {
-    ppm_coeffs(q, clampi(i - 1, 0, q.n - 1), hord, aL, aR, a6);
     const float cpos = fmaxf(c, 0.0f);
     return aR - 0.5f * cpos * ((aR - aL) - (1.0f - kC23 * cpos) * a6);
   }
-  ppm_coeffs(q, clampi(i, 0, q.n - 1), hord, aL, aR, a6);
   const float cneg = fmaxf(-c, 0.0f);
   return aL + 0.5f * cneg * ((aR - aL) + (1.0f - kC23 * cneg) * a6);
 }
 
+// ppm_flux at interface i (between cells i-1 and i) of a line, Courant c,
+// the upwind cell's edges computed from the line.
+template <class L>
+__device__ __forceinline__ float ppm_flux(const L& q, int i, float c,
+                                          int hord) {
+  const int cc = clampi(c >= 0.0f ? i - 1 : i, 0, q.n - 1);
+  return ppm_value(c, q(cc), edge_ord4(q, cc),
+                   edge_ord4(q, clampi(cc + 1, 0, q.n - 1)), hord);
+}
+
+// Lines of a staged tile whose every slot holds the value of the clamped
+// cell (a slot past the face repeats the edge cell, as _shift and _iface
+// do), S floats from cell to cell: edge_ord4 at the cell q points to, and
+// ppm_flux at interface i of a line of n cells from its cell means q0 and
+// stored edges al0, both pointing at cell 0.
+template <int S>
+__device__ __forceinline__ float edge_at(const float* q) {
+  return kC712 * (q[-S] + q[0]) - kC112 * (q[-2 * S] + q[S]);
+}
+
+template <int S>
+__device__ __forceinline__ float ppm_line(const float* q0, const float* al0,
+                                          int i, int n, float c, int hord) {
+  const int cc = clampi(c >= 0.0f ? i - 1 : i, 0, n - 1);
+  return ppm_value(c, q0[cc * S], al0[cc * S], al0[(cc + 1) * S], hord);
+}
+
 // upwind_flux: first-order upwind interface value
-__device__ __forceinline__ float upwind(const Line& q, int i, float c) {
+template <class L>
+__device__ __forceinline__ float upwind(const L& q, int i, float c) {
   return c >= 0.0f ? q(i - 1) : q(i);
 }
 
@@ -190,14 +185,15 @@ __device__ __forceinline__ float corner_w4(float a00, float a01, float a10,
 
 // ---- shared-memory tiles of the horizontal stencil stages ------------------
 //
-// csw2_winds (dsw_csw2.cu) and wind_update (dsw_wind.cu) give one block a
-// tile of kTJ x kTI output points of one face and walk K in chunks of kTK
+// csw1 (dsw_csw1.cu), csw2_winds (dsw_csw2.cu), fvtp2d_tile (below) and
+// wind_update (dsw_wind.cu) give one block a tile of kTJ x kTI output points
+// of one face and walk K in chunks of kTK
 // levels; the thread index runs over the chunk's levels first, then i, then
 // j, so a warp still reads runs along K.  Per chunk the block stages the
 // centre cells its points need (the tile and a rim) in shared memory,
 // derives each resampled or corner value once per cell of the tile there,
 // and only then forms its points.  A staged cell outside the face holds the
-// value at the clamped index, as Arr::c reads it; the derived values of such
+// value at the clamped index, as a clamped read gives it; the derived values of such
 // cells are never used by a point that is written.  What depends on (j, i)
 // alone - offsets, metric weights - is set up once per thread and reused
 // over the chunks, and the next chunk's cells are fetched into registers
@@ -268,7 +264,8 @@ struct StagePlan {
 };
 
 // One line of cells through a staged tile: cell c of the face's line of n
-// cells, clamped to the line like Line, lies at base[(c - first) stride].
+// cells, clamped to the line as _shift and _iface replicate the edge cells,
+// lies at base[(c - first) stride].
 struct TileLine {
   const float* base;
   int stride, first, n;
@@ -413,7 +410,7 @@ __host__ __forceinline__ cudaError_t launch_hydro(
   return cudaGetLastError();
 }
 
-// ---- fvtp2d (ops/fvtp2d.py), in three stages -------------------------
+// ---- fvtp2d (ops/fvtp2d.py) on a tile ---------------------------------
 //
 // Courant numbers and area fluxes are rebuilt from the advective winds u
 // ([F, Ny, Nx+1, K]) and v ([F, Ny+1, Nx, K]) with the plain expressions
@@ -423,107 +420,325 @@ __host__ __forceinline__ cudaError_t launch_hydro(
 // there is none; field 1's by field 0's fluxes (pt by the mass flux of delp
 // in dsw_transport), or, with second_area set, by the area flux (delz
 // beside the mass-weighted w in the nonhydrostatic pass).
+//
+// fvtp2d_tile gives a block the x-interfaces and y-interfaces of kTJ x kTI
+// points (j0.., i0..) of one face - the corner-sized union, as wind_update's
+// points - and walks K in chunks of kTK levels.  The outer flux fx at
+// x-interface i reads the inner update q_i at cells i-3 .. i+2 of its row,
+// and q_i at a cell reads qy at rows j-3 .. j+3 of its column; fy and q_j
+// likewise with the axes swapped.  So per chunk the block stages qy, qx, u
+// and v over the tile with a rim of 3 and derives, each value once, in
+// shared memory: (1) the order-4 PPM edges of qy along y and of qx along x
+// per cell, (2) fyy per y-interface and fxx per x-interface (the limiter on
+// the upwind cell's stored edges), (3) q_i and q_j per cell of the tile and
+// its x-rim or y-rim, (4) the edges of q_i along x and of q_j along y, and
+// (5) fx and fy at the thread's point.  q_i and q_j never leave shared
+// memory.  Each phase runs over every field before the barrier that ends
+// it, its elements in an unrolled loop, so that a thread has independent
+// work to issue while a shared-memory read is in flight.
+//
+// A staged cell outside the face holds the clamped cell, and each derived
+// tile slot is computed at the clamped cell of its line, so that every slot
+// holds the value of the clamped cell and the phases read their lines
+// without clamping (edge_at, ppm_line); only the upwind cell of a flux is
+// clamped, as in ppm_flux.  So each value is the plain version's to the bit.
 constexpr int kMaxFv = 2;
 
 struct FvFields {
   const float* qx[kMaxFv];  // x-order fills [F, Ny, Nx, K]
   const float* qy[kMaxFv];  // y-order fills
-  float* q_i[kMaxFv];       // inner y-updates (scratch)
-  float* q_j[kMaxFv];       // inner x-updates (scratch)
   float* fx[kMaxFv];        // [F, Ny, Nx+1, K]
   float* fy[kMaxFv];        // [F, Ny+1, Nx, K]
   int nf;
   int second_area;          // field 1 takes the area flux as its weight
 };
 
-// Stage 1, per cell: q_i = (qy area + ddy(fyy)) / (area + ddy(yfx)) with
-// fyy = ppm_flux(qy, cry) yfx, and q_j likewise along x from qx.
-__global__ void __launch_bounds__(kThreads)
-fv_inner(Metrics m, int F, int Ny, int Nx, int K, FvFields fv,
-         const float* __restrict__ u, const float* __restrict__ v, float dt,
-         int hord) {
-  int f, j, i, k;
-  if (!decode(F, Ny, Nx, K, f, j, i, k)) return;
-  const Arr U = {u, Ny, Nx + 1, K};
-  const Arr V = {v, Ny + 1, Nx, K};
-  const float area = met(m, AREA, f, j, i);
-  const float v0 = V(f, j, i, k), v1 = V(f, j + 1, i, k);
-  const float yfx0 = v0 * dt * met(m, DX, f, j, i);
-  const float yfx1 = v1 * dt * met(m, DX, f, j + 1, i);
-  const float cry0 = v0 * dt * met(m, RDYC, f, j, i);
-  const float cry1 = v1 * dt * met(m, RDYC, f, j + 1, i);
-  const float ray = 1.0f / (area + (yfx0 - yfx1));
-  const float u0 = U(f, j, i, k), u1 = U(f, j, i + 1, k);
-  const float xfx0 = u0 * dt * met(m, DY, f, j, i);
-  const float xfx1 = u1 * dt * met(m, DY, f, j, i + 1);
-  const float crx0 = u0 * dt * met(m, RDXC, f, j, i);
-  const float crx1 = u1 * dt * met(m, RDXC, f, j, i + 1);
-  const float rax = 1.0f / (area + (xfx0 - xfx1));
-  const long long o = off(Ny, Nx, K, f, j, i, k);
-  for (int n = 0; n < fv.nf; ++n) {
-    const Arr qy = {fv.qy[n], Ny, Nx, K};
-    const Line ly = line_y(qy, f, i, k);
-    const float fyy0 = ppm_flux(ly, j, cry0, hord) * yfx0;
-    const float fyy1 = ppm_flux(ly, j + 1, cry1, hord) * yfx1;
-    fv.q_i[n][o] = (qy(f, j, i, k) * area + (fyy0 - fyy1)) * ray;
-    const Arr qx = {fv.qx[n], Ny, Nx, K};
-    const Line lx = line_x(qx, f, j, k);
-    const float fxx0 = ppm_flux(lx, i, crx0, hord) * xfx0;
-    const float fxx1 = ppm_flux(lx, i + 1, crx1, hord) * xfx1;
-    fv.q_j[n][o] = (qx(f, j, i, k) * area + (fxx0 - fxx1)) * rax;
-  }
-}
+// The staged and derived regions of fvtp2d_tile, rows x columns from a
+// first cell relative to (j0, i0):
+constexpr int kFvQyJ = kTJ + 6, kFvQyI = kTI + 5;  // qy cells from (-3, -3)
+constexpr int kFvQxJ = kTJ + 5, kFvQxI = kTI + 6;  // qx cells from (-3, -3)
+constexpr int kFvVJ = kTJ + 1, kFvVI = kTI + 5;    // v, fyy from (0, -3)
+constexpr int kFvUJ = kTJ + 5, kFvUI = kTI + 1;    // u, fxx from (-3, 0)
+constexpr int kFvAyJ = kTJ + 3, kFvAyI = kTI + 5;  // edges of qy from (-1, -3)
+constexpr int kFvAxJ = kTJ + 5, kFvAxI = kTI + 3;  // edges of qx from (-3, -1)
+constexpr int kFvQiI = kTI + 5;                    // q_i: kTJ rows from (0, -3)
+constexpr int kFvQjJ = kTJ + 5;                    // q_j: kTI cols from (-3, 0)
+constexpr int kFvEiI = kTI + 2;                    // edges of q_i from (0, -1)
+constexpr int kFvEjJ = kTJ + 2;                    // edges of q_j from (-1, 0)
+constexpr int kFvAreaJ = kTJ + 5, kFvAreaI = kTI + 5;  // area from (-3, -3)
+using FvQyPlan = StagePlan<kFvQyJ, kFvQyI>;
+using FvQxPlan = StagePlan<kFvQxJ, kFvQxI>;
+using FvVPlan = StagePlan<kFvVJ, kFvVI>;
+using FvUPlan = StagePlan<kFvUJ, kFvUI>;
+// buffer a of a field holds the edges of qy and qx, then q_i and q_j;
+// buffer b fyy and fxx, then the edges of q_i and q_j
+constexpr int kFvACells =
+    kFvAyJ * kFvAyI + kFvAxJ * kFvAxI > kTJ * kFvQiI + kFvQjJ * kTI
+        ? kFvAyJ * kFvAyI + kFvAxJ * kFvAxI
+        : kTJ * kFvQiI + kFvQjJ * kTI;
+constexpr int kFvBCells =
+    kFvVJ * kFvVI + kFvUJ * kFvUI > kTJ * kFvEiI + kFvEjJ * kTI
+        ? kFvVJ * kFvVI + kFvUJ * kFvUI
+        : kTJ * kFvEiI + kFvEjJ * kTI;
 
-// Stage 2, per interface over [F, Ny+1, Nx+1, K]: fx = ppm_flux(q_i, crx)
-// times mfx (or xfx when mfx is null) for field 0, times field 0's fx (or
-// xfx with second_area) for field 1; fy likewise from q_j.
-__global__ void __launch_bounds__(kThreads)
-fv_flux(Metrics m, int F, int Ny, int Nx, int K, FvFields fv,
-        const float* __restrict__ u, const float* __restrict__ v,
-        const float* __restrict__ mfx, const float* __restrict__ mfy,
-        float dt, int hord) {
-  int f, j, i, k;
-  if (!decode(F, Ny + 1, Nx + 1, K, f, j, i, k)) return;
-  if (j < Ny) {  // x-interface (j, i)
-    const long long o = off(Ny, Nx + 1, K, f, j, i, k);
-    const float uu = u[o];
-    const float crx = uu * dt * met(m, RDXC, f, j, i);
-    const float xfx = uu * dt * met(m, DY, f, j, i);
-    float w = mfx ? mfx[o] : xfx;
-    for (int n = 0; n < fv.nf; ++n) {
-      const Arr qi = {fv.q_i[n], Ny, Nx, K};
-      const float flux = ppm_flux(line_x(qi, f, j, k), i, crx, hord) * w;
-      fv.fx[n][o] = flux;
-      if (n == 0) w = fv.second_area ? xfx : flux;
-    }
-  }
-  if (i < Nx) {  // y-interface (j, i)
-    const long long o = off(Ny + 1, Nx, K, f, j, i, k);
-    const float vv = v[o];
-    const float cry = vv * dt * met(m, RDYC, f, j, i);
-    const float yfx = vv * dt * met(m, DX, f, j, i);
-    float w = mfy ? mfy[o] : yfx;
-    for (int n = 0; n < fv.nf; ++n) {
-      const Arr qj = {fv.q_j[n], Ny, Nx, K};
-      const float flux = ppm_flux(line_y(qj, f, i, k), j, cry, hord) * w;
-      fv.fy[n][o] = flux;
-      if (n == 0) w = fv.second_area ? yfx : flux;
+template <int NF>
+struct FvTiles {
+  float qy[NF][FvQyPlan::kCount];
+  float qx[NF][FvQxPlan::kCount];
+  float u[FvUPlan::kCount];
+  float v[FvVPlan::kCount];
+  float a[NF][kFvACells * kTK];
+  float b[NF][kFvBCells * kTK];
+  float rdyc[kFvVJ * kFvVI];  // at the staged v
+  float dx[kFvVJ * kFvVI];
+  float rdxc[kFvUJ * kFvUI];  // at the staged u
+  float dy[kFvUJ * kFvUI];
+  float area[kFvAreaJ * kFvAreaI];
+};
+
+// fn(e, jj, ii) for the thread's elements e of an NJ x NI tile of cells,
+// level lane threadIdx.x % kTK of cell (jj, ii).
+template <int NJ, int NI, class Fn>
+__device__ __forceinline__ void tile_cells(Fn fn) {
+  constexpr int kCount = NJ * NI * kTK;
+#pragma unroll
+  for (int r = 0; r < (kCount + kTileThreads - 1) / kTileThreads; ++r) {
+    const int e = threadIdx.x + r * kTileThreads;
+    if (e < kCount) {
+      const int cell = e / kTK;
+      fn(e, cell / NI, cell % NI);
     }
   }
 }
 
-// Stages 1 and 2 back to back on stream s.
+template <int NF>
+__global__ void __launch_bounds__(kTileThreads)
+fvtp2d_tile(Metrics m, int F, int Ny, int Nx, int K, FvFields fv,
+            const float* __restrict__ u, const float* __restrict__ v,
+            const float* __restrict__ mfx, const float* __restrict__ mfy,
+            float dt, int hord) {
+  extern __shared__ float fv_smem[];
+  FvTiles<NF>& t = *reinterpret_cast<FvTiles<NF>*>(fv_smem);
+  const int f = blockIdx.z, j0 = blockIdx.y * kTJ, i0 = blockIdx.x * kTI;
+  const int tid = threadIdx.x, kl = tid % kTK;
+
+  FvQyPlan qy_plan;
+  FvQxPlan qx_plan;
+  FvUPlan u_plan;
+  FvVPlan v_plan;
+  qy_plan.init(Ny, Nx, K, f, j0 - 3, i0 - 3);
+  qx_plan.init(Ny, Nx, K, f, j0 - 3, i0 - 3);
+  u_plan.init(Ny, Nx + 1, K, f, j0 - 3, i0);
+  v_plan.init(Ny + 1, Nx, K, f, j0, i0 - 3);
+  stage_metric<kFvVJ, kFvVI>(t.rdyc, m, RDYC, f, j0, i0 - 3);
+  stage_metric<kFvVJ, kFvVI>(t.dx, m, DX, f, j0, i0 - 3);
+  stage_metric<kFvUJ, kFvUI>(t.rdxc, m, RDXC, f, j0 - 3, i0);
+  stage_metric<kFvUJ, kFvUI>(t.dy, m, DY, f, j0 - 3, i0);
+  stage_metric<kFvAreaJ, kFvAreaI>(t.area, m, AREA, f, j0 - 3, i0 - 3);
+  // field n's derived tiles
+  const auto aly = [&](int n) { return t.a[n]; };  // edges of qy, then q_i
+  const auto alx = [&](int n) { return t.a[n] + kFvAyJ * kFvAyI * kTK; };
+  const auto qi = [&](int n) { return t.a[n]; };
+  const auto qj = [&](int n) { return t.a[n] + kTJ * kFvQiI * kTK; };
+  const auto fyy = [&](int n) { return t.b[n]; };  // fyy, then edges of q_i
+  const auto fxx = [&](int n) { return t.b[n] + kFvVJ * kFvVI * kTK; };
+  const auto ali = [&](int n) { return t.b[n]; };
+  const auto alj = [&](int n) { return t.b[n] + kTJ * kFvEiI * kTK; };
+
+  // the thread's point (j, i): x-interface (j, i) between cells i-1 and i,
+  // y-interface (j, i) between cells j-1 and j
+  const int ti = (tid / kTK) % kTI, tj = tid / (kTK * kTI);
+  const int j = j0 + tj, i = i0 + ti;
+  const bool on_x = j < Ny && i <= Nx, on_y = i < Nx && j <= Ny;
+  const int ox = on_x ? cell_off(Ny, Nx + 1, K, f, j, i) : -1;
+  const int oy = on_y ? cell_off(Ny + 1, Nx, K, f, j, i) : -1;
+  const float rdxc = on_x ? met32(m, RDXC, f, j, i) : 0.0f;
+  const float dy = on_x ? met32(m, DY, f, j, i) : 0.0f;
+  const float rdyc = on_y ? met32(m, RDYC, f, j, i) : 0.0f;
+  const float dx = on_y ? met32(m, DX, f, j, i) : 0.0f;
+  // cell 0 of the thread's q_i row and q_j column and of their edges
+  const int qi_row = tile_at(kFvQiI, tj, 3 - i0, kl);
+  const int ali_row = tile_at(kFvEiI, tj, 1 - i0, kl);
+  const int qj_col = tile_at(kTI, 3 - j0, ti, kl);
+  const int alj_col = tile_at(kTI, 1 - j0, ti, kl);
+
+  // Registers for the next chunk's values, fetched while this one computes.
+  float n_qy[NF][FvQyPlan::kPer], n_qx[NF][FvQxPlan::kPer];
+  float n_u[FvUPlan::kPer], n_v[FvVPlan::kPer];
+  float n_mx = 0.0f, n_my = 0.0f;
+  const auto fetch = [&](int k) {
+#pragma unroll
+    for (int n = 0; n < NF; ++n) {
+      qy_plan.fetch(n_qy[n], fv.qy[n], k);
+      qx_plan.fetch(n_qx[n], fv.qx[n], k);
+    }
+    u_plan.fetch(n_u, u, k);
+    v_plan.fetch(n_v, v, k);
+    if (mfx != nullptr && on_x) n_mx = mfx[ox + k];
+    if (mfy != nullptr && on_y) n_my = mfy[oy + k];
+  };
+  fetch(min(kl, K - 1));
+  for (int k0 = 0; k0 < K; k0 += kTK) {
+    // the tiles committed here were last read before the barrier that
+    // ended phase (3) of the previous chunk
+#pragma unroll
+    for (int n = 0; n < NF; ++n) {
+      qy_plan.commit(t.qy[n], n_qy[n]);
+      qx_plan.commit(t.qx[n], n_qx[n]);
+    }
+    u_plan.commit(t.u, n_u);
+    v_plan.commit(t.v, n_v);
+    const float mx = n_mx, my = n_my;
+    __syncthreads();
+    if (k0 + kTK < K) fetch(min(k0 + kTK + kl, K - 1));
+    const int k = k0 + kl;
+    // the thread's winds, read before any later barrier
+    const float uu = t.u[tile_at(kFvUI, tj + 3, ti, kl)];
+    const float vv = t.v[tile_at(kFvVI, tj, ti + 3, kl)];
+    // Each phase runs over all fields before the barrier that ends it.
+    // (1) edges of qy along y and of qx along x
+#pragma unroll
+    for (int n = 0; n < NF; ++n) {
+      const float* qy = t.qy[n];
+      const float* qx = t.qx[n];
+      tile_cells<kFvAyJ, kFvAyI>([&](int e, int jj, int ii) {
+        const int c = min(j0 - 1 + jj, Ny - 1);
+        aly(n)[e] = edge_at<kFvQyI * kTK>(
+            qy + tile_at(kFvQyI, c - (j0 - 3), ii, kl));
+      });
+      tile_cells<kFvAxJ, kFvAxI>([&](int e, int jj, int ii) {
+        const int c = min(i0 - 1 + ii, Nx - 1);
+        alx(n)[e] = edge_at<kTK>(qx + tile_at(kFvQxI, jj, c - (i0 - 3), kl));
+      });
+    }
+    __syncthreads();
+    // (2) fyy = ppm_flux(qy, cry) yfx per y-interface, fxx per x-interface
+#pragma unroll
+    for (int n = 0; n < NF; ++n) {
+      const float* qy = t.qy[n];
+      const float* qx = t.qx[n];
+      tile_cells<kFvVJ, kFvVI>([&](int e, int jj, int ii) {
+        const float w = t.v[e];
+        const int c = jj * kFvVI + ii;
+        const float cry = w * dt * t.rdyc[c];
+        const float yfx = w * dt * t.dx[c];
+        fyy(n)[e] = ppm_line<kFvQyI * kTK>(
+                        qy + tile_at(kFvQyI, 3 - j0, ii, kl),
+                        aly(n) + tile_at(kFvAyI, 1 - j0, ii, kl), j0 + jj, Ny,
+                        cry, hord) * yfx;
+      });
+      tile_cells<kFvUJ, kFvUI>([&](int e, int jj, int ii) {
+        const float w = t.u[e];
+        const int c = jj * kFvUI + ii;
+        const float crx = w * dt * t.rdxc[c];
+        const float xfx = w * dt * t.dy[c];
+        fxx(n)[e] = ppm_line<kTK>(qx + tile_at(kFvQxI, jj, 3 - i0, kl),
+                                  alx(n) + tile_at(kFvAxI, jj, 1 - i0, kl),
+                                  i0 + ii, Nx, crx, hord) * xfx;
+      });
+    }
+    __syncthreads();
+    // (3) q_i = (qy area + ddy(fyy)) / (area + ddy(yfx)) per cell of the
+    // tile and its x-rim, q_j likewise along x
+#pragma unroll
+    for (int n = 0; n < NF; ++n) {
+      const float* qy = t.qy[n];
+      const float* qx = t.qx[n];
+      tile_cells<kTJ, kFvQiI>([&](int e, int jj, int ii) {
+        const float area = t.area[(jj + 3) * kFvAreaI + ii];
+        const int s0 = tile_at(kFvVI, jj, ii, kl), s1 = s0 + kFvVI * kTK;
+        const float yfx0 = t.v[s0] * dt * t.dx[jj * kFvVI + ii];
+        const float yfx1 = t.v[s1] * dt * t.dx[(jj + 1) * kFvVI + ii];
+        const float ray = 1.0f / (area + (yfx0 - yfx1));
+        qi(n)[e] = (qy[tile_at(kFvQyI, jj + 3, ii, kl)] * area +
+                    (fyy(n)[s0] - fyy(n)[s1])) * ray;
+      });
+      tile_cells<kFvQjJ, kTI>([&](int e, int jj, int ii) {
+        const float area = t.area[jj * kFvAreaI + ii + 3];
+        const int s0 = tile_at(kFvUI, jj, ii, kl), s1 = s0 + kTK;
+        const float xfx0 = t.u[s0] * dt * t.dy[jj * kFvUI + ii];
+        const float xfx1 = t.u[s1] * dt * t.dy[jj * kFvUI + ii + 1];
+        const float rax = 1.0f / (area + (xfx0 - xfx1));
+        qj(n)[e] = (qx[tile_at(kFvQxI, jj, ii + 3, kl)] * area +
+                    (fxx(n)[s0] - fxx(n)[s1])) * rax;
+      });
+    }
+    __syncthreads();
+    // (4) edges of q_i along x and of q_j along y
+#pragma unroll
+    for (int n = 0; n < NF; ++n) {
+      tile_cells<kTJ, kFvEiI>([&](int e, int jj, int ii) {
+        const int c = min(i0 - 1 + ii, Nx - 1);
+        ali(n)[e] =
+            edge_at<kTK>(qi(n) + tile_at(kFvQiI, jj, c - (i0 - 3), kl));
+      });
+      tile_cells<kFvEjJ, kTI>([&](int e, int jj, int ii) {
+        const int c = min(j0 - 1 + jj, Ny - 1);
+        alj(n)[e] =
+            edge_at<kTI * kTK>(qj(n) + tile_at(kTI, c - (j0 - 3), ii, kl));
+      });
+    }
+    __syncthreads();
+    // (5) fx = ppm_flux(q_i, crx) w and fy = ppm_flux(q_j, cry) w at the
+    // thread's interfaces; field 1 is weighted by field 0's fluxes or the
+    // area fluxes.  The next chunk's phase (1) comes after its own barrier.
+    if (k >= K) continue;
+    if (on_x) {
+      const float crx = uu * dt * rdxc;
+      const float xfx = uu * dt * dy;
+      float w = mfx != nullptr ? mx : xfx;
+#pragma unroll
+      for (int n = 0; n < NF; ++n) {
+        const float flux =
+            ppm_line<kTK>(qi(n) + qi_row, ali(n) + ali_row, i, Nx, crx,
+                          hord) * w;
+        fv.fx[n][ox + k] = flux;
+        w = fv.second_area ? xfx : flux;
+      }
+    }
+    if (on_y) {
+      const float cry = vv * dt * rdyc;
+      const float yfx = vv * dt * dx;
+      float w = mfy != nullptr ? my : yfx;
+#pragma unroll
+      for (int n = 0; n < NF; ++n) {
+        const float flux =
+            ppm_line<kTI * kTK>(qj(n) + qj_col, alj(n) + alj_col, j, Ny, cry,
+                                hord) * w;
+        fv.fy[n][oy + k] = flux;
+        w = fv.second_area ? yfx : flux;
+      }
+    }
+  }
+}
+
+template <int NF>
+cudaError_t launch_fv_tile(const Metrics& m, int F, int Ny, int Nx, int K,
+                           const FvFields& fv, const float* u, const float* v,
+                           const float* mfx, const float* mfy, float dt,
+                           int hord, cudaStream_t s) {
+  const size_t bytes = sizeof(FvTiles<NF>);
+  cudaError_t err = cudaFuncSetAttribute(
+      fvtp2d_tile<NF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return err;
+  fvtp2d_tile<NF><<<tile_grid(F, Ny + 1, Nx + 1), kTileThreads, bytes, s>>>(
+      m, F, Ny, Nx, K, fv, u, v, mfx, mfy, dt, hord);
+  return cudaGetLastError();
+}
+
+// fvtp2d of fv.nf (1 or 2) fields on stream s, one launch; with two fields
+// the tiles need more than the 48 KB of shared memory a launch gets without
+// opting in.
 __host__ __forceinline__ cudaError_t launch_fvtp2d(
     const Metrics& m, int F, int Ny, int Nx, int K, const FvFields& fv,
     const float* u, const float* v, const float* mfx, const float* mfy,
     float dt, int hord, cudaStream_t s) {
-  fv_inner<<<blocks_for((long long)F * Ny * Nx * K), kThreads, 0, s>>>(
-      m, F, Ny, Nx, K, fv, u, v, dt, hord);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  fv_flux<<<blocks_for((long long)F * (Ny + 1) * (Nx + 1) * K), kThreads, 0,
-            s>>>(m, F, Ny, Nx, K, fv, u, v, mfx, mfy, dt, hord);
-  return cudaGetLastError();
+  return fv.nf == 2
+             ? launch_fv_tile<2>(m, F, Ny, Nx, K, fv, u, v, mfx, mfy, dt,
+                                 hord, s)
+             : launch_fv_tile<1>(m, F, Ny, Nx, K, fv, u, v, mfx, mfy, dt,
+                                 hord, s);
 }
 
 // Common argument checks of the C entries; 0 when the launch may go on.

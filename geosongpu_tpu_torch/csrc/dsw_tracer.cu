@@ -7,18 +7,17 @@
 // the Courant numbers and area fluxes rebuilt from the substep's uct/vct,
 // its outer fluxes weighted by the substep's mass fluxes (so q == const
 // stays constant to rounding), and the flux-form update divided by the
-// delp the transport kernel produced.  The fvtp2d stages are
-// dsw_transport's (dsw_common.cuh) with one field, as in dsw_tracer_acc;
-// the difference to that kernel is the divisor, which is passed in here
-// and advanced from the accumulated mass fluxes there.
+// delp the transport kernel produced.  Stages: (1) fvtp2d_tile,
+// dsw_transport's fvtp2d stage (dsw_common.cuh) with one field, the
+// fluxes to scratch; (2) tracer_sub_update per cell.  The difference to
+// dsw_tracer_acc is the divisor, which is passed in here and advanced from
+// the accumulated mass fluxes there.
 //
 // What bounds it on this card: each of the 8 inputs is read and the one
 // output written once, 9 field-sized arrays (45 MB at c48-L72, 13 us at
-// 3.35 TB/s); the stages move about 11 with their scratch, for about 800
-// flops per cell.  As in dsw_transport the recomputed PPM edges and their
-// neighbour reads make it bound by instruction issue and load latency.  A
-// later design handles all tracers of a substep in one launch and shares
-// dsw_transport's staged tiles.
+// 3.35 TB/s); the stages move about 13 with their scratch, for about 165
+// operations per cell.  A later design handles all tracers of a substep in
+// one launch.
 #include "dsw_common.cuh"
 
 namespace {
@@ -45,16 +44,14 @@ tracer_sub_update(Metrics m, int F, int Ny, int Nx, int K,
 }  // namespace
 
 // qx/qy/pd_x/delp_new: [F, Ny, Nx, K] (qx and qy may be the same array);
-// uct, mfx [F, Ny, Nx+1, K]; vct, mfy [F, Ny+1, Nx, K].  Scratch: q_i, q_j
-// [F, Ny, Nx, K], fx [F, Ny, Nx+1, K], fy [F, Ny+1, Nx, K].  Output q_new
-// [F, Ny, Nx, K].  Returns the CUDA error of the first failed launch, 0
-// when all launched.
+// uct, mfx [F, Ny, Nx+1, K]; vct, mfy [F, Ny+1, Nx, K].  Scratch: fx
+// [F, Ny, Nx+1, K], fy [F, Ny+1, Nx, K].  Output q_new [F, Ny, Nx, K].
+// Returns the CUDA error of the first failed launch, 0 when all launched.
 extern "C" int dsw_tracer_f32(
     const void* metrics, int F, int Ny, int Nx, int K, const void* qx,
     const void* qy, const void* pd_x, const void* delp_new, const void* uct,
     const void* vct, const void* mfx, const void* mfy, float dt, int hord,
-    void* q_i, void* q_j, void* fx, void* fy, void* q_new, int device,
-    void* stream) {
+    void* fx, void* fy, void* q_new, int device, void* stream) {
   if (hord != 6 && hord != 8) return (int)cudaErrorInvalidValue;
   const int rc = check_grid(F, Ny, Nx, K);
   if (rc != 0) return rc;
@@ -68,8 +65,6 @@ extern "C" int dsw_tracer_f32(
   fv.nf = 1;
   fv.qx[0] = cf(qx);
   fv.qy[0] = cf(qy);
-  fv.q_i[0] = wf(q_i);
-  fv.q_j[0] = wf(q_j);
   fv.fx[0] = wf(fx);
   fv.fy[0] = wf(fy);
   err = launch_fvtp2d(m, F, Ny, Nx, K, fv, cf(uct), cf(vct), cf(mfx),

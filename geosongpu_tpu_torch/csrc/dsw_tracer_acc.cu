@@ -7,14 +7,15 @@
 // advanced by the interval's accumulated mass fluxes, and fvtp2d of q with
 // the Courant numbers and area fluxes rebuilt from the accumulated winds,
 // its outer fluxes weighted by the accumulated mass fluxes, so q == const
-// stays exactly constant.  The fvtp2d stages are dsw_transport's
-// (dsw_common.cuh), with one field instead of two.
+// stays exactly constant.  Stages: (1) fvtp2d_tile, dsw_transport's fvtp2d
+// stage (dsw_common.cuh) with one field instead of two, the fluxes to
+// scratch; (2) tracer_update per cell.
 //
-// What bounds it on this card: at c48-L72 about 11 field-sized arrays move
-// (~55 MB, 17 us at 3.35 TB/s) for about 800 flops per cell; as in
-// dsw_transport the recomputed PPM edges and their neighbour reads make it
-// bound by instruction issue and load latency.  A later design shares the
-// staged halo tiles planned for dsw_transport and handles all tracers of a
+// What bounds it on this card: its bytes.  At c48-L72 the 7 inputs and 2
+// outputs are 9 field-sized arrays (~45 MB, 13 us at 3.35 TB/s), the
+// stages move about 13 with the scratch fluxes, for about 170 operations
+// per cell.  The tile computes each PPM edge once per cell and keeps the
+// inner updates in shared memory; a later design handles all tracers of a
 // subcycle in one launch.
 #include "dsw_common.cuh"
 
@@ -43,16 +44,15 @@ tracer_update(Metrics m, int F, int Ny, int Nx, int K,
 }  // namespace
 
 // qx/qy/pd_x: [F, Ny, Nx, K] (qx and qy may be the same array); uacc, mfx
-// [F, Ny, Nx+1, K]; vacc, mfy [F, Ny+1, Nx, K].  Scratch: q_i, q_j
-// [F, Ny, Nx, K], fx [F, Ny, Nx+1, K], fy [F, Ny+1, Nx, K].  Outputs
-// delp_new, q_new [F, Ny, Nx, K].  Returns the CUDA error of the first
-// failed launch, 0 when all launched.
+// [F, Ny, Nx+1, K]; vacc, mfy [F, Ny+1, Nx, K].  Scratch: fx
+// [F, Ny, Nx+1, K], fy [F, Ny+1, Nx, K].  Outputs delp_new, q_new
+// [F, Ny, Nx, K].  Returns the CUDA error of the first failed launch, 0
+// when all launched.
 extern "C" int dsw_tracer_acc_f32(
     const void* metrics, int F, int Ny, int Nx, int K, const void* qx,
     const void* qy, const void* pd_x, const void* uacc, const void* vacc,
-    const void* mfx, const void* mfy, float dt, int hord, void* q_i,
-    void* q_j, void* fx, void* fy, void* delp_new, void* q_new, int device,
-    void* stream) {
+    const void* mfx, const void* mfy, float dt, int hord, void* fx, void* fy,
+    void* delp_new, void* q_new, int device, void* stream) {
   if (hord != 6 && hord != 8) return (int)cudaErrorInvalidValue;
   const int rc = check_grid(F, Ny, Nx, K);
   if (rc != 0) return rc;
@@ -66,8 +66,6 @@ extern "C" int dsw_tracer_acc_f32(
   fv.nf = 1;
   fv.qx[0] = cf(qx);
   fv.qy[0] = cf(qy);
-  fv.q_i[0] = wf(q_i);
-  fv.q_j[0] = wf(q_j);
   fv.fx[0] = wf(fx);
   fv.fy[0] = wf(fy);
   err = launch_fvtp2d(m, F, Ny, Nx, K, fv, cf(uacc), cf(vacc), cf(mfx),

@@ -14,24 +14,22 @@
 // by the mass flux and the update multiplied by 1/delp_new, and delz like
 // delp, with the area fluxes and no mass flux, clamped at 1 m.
 //
-// Stages, launched back to back on the caller's stream: (1) fv_inner, the
-// inner updates q_i/q_j of both fields; (2) fv_flux, the outer fluxes at
-// every interface; (3) transport_update, per cell.  Intermediates go to
-// scratch arrays the wrapper allocates.  The nonhydrostatic fields take a
-// second pass through the same stages, (4) fv_inner and (5) fv_flux for
-// (w, delz), then (6) nh_transport_update, rather than a 4-field loop:
-// fv_inner holds 168 registers with two fields, and the pass reuses the
-// first pass's scratch.
+// Stages, launched back to back on the caller's stream: (1) fvtp2d_tile
+// (dsw_common.cuh), the outer fluxes of both fields at every interface,
+// the inner updates q_i/q_j kept in shared memory; (2) transport_update,
+// per cell.  pt's fluxes go to scratch arrays the wrapper allocates.  The
+// nonhydrostatic fields take a second pass, (3) fvtp2d_tile for (w, delz),
+// then (4) nh_transport_update, rather than a 4-field tile: two fields'
+// tiles already take 65 KB of shared memory.
 //
 // What bounds it on this card: at c48-L72 (6 x 54 x 54 x 72 cells, 5.0 MB
-// per field) the stages read and write about 17 field-sized arrays, ~90 MB,
-// 27 us at 3.35 TB/s, for about 1,500 flops per cell (four PPM edges
-// recomputed per interface value, each stage recomputing its neighbours'),
-// 1.5 GFLOP, 22 us at 67 TFLOP/s f32.  The neighbour reads hit L1/L2, so the
-// kernel is bound by instruction issue and load latency rather than by
-// HBM.  A later design stages a (tile + 3-row halo) block of each field in
-// shared memory (the substep's reach, sw_pallas.py:103-108) and computes
-// each PPM edge once per cell instead of once per use.
+// per field) the kernel must read 6 field-sized arrays and write 4 (~50 MB,
+// 15 us at 3.35 TB/s); the two stages move about 14 with pt's fluxes.  The
+// PPM arithmetic, each edge computed once per cell, is about 330 operations
+// per cell, 5 us at 67 TFLOP/s f32.  So it is bound by bytes; what kept the
+// first design (one thread per point) at 3-5% of that bound was computing
+// every PPM edge about four times and q_i/q_j going out to device memory
+// and back, at the load latency of strided PPM lines.
 #include "dsw_common.cuh"
 
 namespace {
@@ -86,8 +84,8 @@ nh_transport_update(Metrics m, int F, int Ny, int Nx, int K,
 
 // pd_x/pd_y/pt_x/pt_y: [F, Ny, Nx, K] (the x- and y-order fills may be the
 // same array: they are only read); uct [F, Ny, Nx+1, K], vct
-// [F, Ny+1, Nx, K].  Scratch: q_i_d, q_j_d, q_i_t, q_j_t [F, Ny, Nx, K],
-// tfx [F, Ny, Nx+1, K], tfy [F, Ny+1, Nx, K].  Outputs delp_new, pt_new
+// [F, Ny+1, Nx, K].  Scratch: tfx [F, Ny, Nx+1, K], tfy [F, Ny+1, Nx, K].
+// Outputs delp_new, pt_new
 // [F, Ny, Nx, K], mfx [F, Ny, Nx+1, K], mfy [F, Ny+1, Nx, K].
 // Nonhydrostatic (pz_x not null): pw_x/pw_y/pz_x/pz_y [F, Ny, Nx, K],
 // scratch zfx [F, Ny, Nx+1, K] and zfy [F, Ny+1, Nx, K], outputs w_adv and
@@ -96,11 +94,10 @@ nh_transport_update(Metrics m, int F, int Ny, int Nx, int K,
 extern "C" int dsw_transport_f32(
     const void* metrics, int F, int Ny, int Nx, int K, const void* pd_x,
     const void* pd_y, const void* pt_x, const void* pt_y, const void* uct,
-    const void* vct, float dt, int hord, void* q_i_d, void* q_j_d,
-    void* q_i_t, void* q_j_t, void* tfx, void* tfy, void* delp_new,
-    void* pt_new, void* mfx, void* mfy, const void* pw_x, const void* pw_y,
-    const void* pz_x, const void* pz_y, void* zfx, void* zfy, void* w_adv,
-    void* delz_adv, int device, void* stream) {
+    const void* vct, float dt, int hord, void* tfx, void* tfy,
+    void* delp_new, void* pt_new, void* mfx, void* mfy, const void* pw_x,
+    const void* pw_y, const void* pz_x, const void* pz_y, void* zfx,
+    void* zfy, void* w_adv, void* delz_adv, int device, void* stream) {
   if (hord != 6 && hord != 8) return (int)cudaErrorInvalidValue;
   const int rc = check_grid(F, Ny, Nx, K);
   if (rc != 0) return rc;
@@ -116,10 +113,6 @@ extern "C" int dsw_transport_f32(
   fv.qy[0] = cf(pd_y);
   fv.qx[1] = cf(pt_x);
   fv.qy[1] = cf(pt_y);
-  fv.q_i[0] = wf(q_i_d);
-  fv.q_j[0] = wf(q_j_d);
-  fv.q_i[1] = wf(q_i_t);
-  fv.q_j[1] = wf(q_j_t);
   fv.fx[0] = wf(mfx);
   fv.fy[0] = wf(mfy);
   fv.fx[1] = wf(tfx);
@@ -134,7 +127,7 @@ extern "C" int dsw_transport_f32(
   err = cudaGetLastError();
   if (err != cudaSuccess || pz_x == nullptr) return (int)err;
 
-  // nonhydrostatic pass: (w, delz) through the same stages; w's fluxes go
+  // nonhydrostatic pass: (w, delz) through the same stage; w's fluxes go
   // to tfx/tfy, which transport_update has consumed
   FvFields nh = fv;
   nh.second_area = 1;

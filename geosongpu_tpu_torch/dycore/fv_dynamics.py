@@ -54,6 +54,17 @@ def check_supported(cfg: DycoreConfig) -> None:
                         "devices; ROADMAP queue A item 13)")
     if cfg.dtype != "float32":
         unported.append(f"dtype={cfg.dtype!r} (the port runs float32)")
+    # the remap and PPM refuse these values too (ops/remap.py, ops/ppm.py);
+    # naming them here makes the model fail when it is built
+    if cfg.kord != 8:
+        unported.append(f"kord={cfg.kord} (the port's remap is the monotone "
+                        "kord 8 form)")
+    for name in ("hord", "hord_tm", "hord_mt"):
+        value = getattr(cfg, name)
+        if value not in (6, 8) and not (value == 0 and name != "hord"):
+            unported.append(f"{name}={value} (the port's PPM has the hord 6 "
+                            "and 8 forms" + ("" if name == "hord" else
+                                             "; 0 follows hord") + ")")
     if unported:
         raise NotImplementedError("not ported: " + "; ".join(unported))
 

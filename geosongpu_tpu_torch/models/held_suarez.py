@@ -60,6 +60,27 @@ class HeldSuarezModel:
             state = self.step(state)
         return state
 
+    # what run_with_history records after each step, as the reference's
+    # run_with_history does: the mean, min and max surface pressure, max |u|
+    # and mean pt
+    HISTORY = {"ps_mean": lambda s: s.ps.mean(),
+               "ps_min": lambda s: s.ps.min(),
+               "ps_max": lambda s: s.ps.max(),
+               "umax": lambda s: s.u.abs().max(),
+               "tmean": lambda s: s.pt.mean()}
+
+    def run_with_history(self, state: DycoreState, steps: int):
+        """`steps` steps -> (state, {diagnostic: [steps] tensor}) with each
+        diagnostic of HISTORY after each step."""
+        rows = []
+        for _ in range(steps):
+            state = self.step(state)
+            rows.append(torch.stack([d(state) for d in self.HISTORY.values()]))
+        hist = torch.stack(rows) if rows else torch.zeros(
+            (0, len(self.HISTORY)), dtype=state.ps.dtype,
+            device=state.ps.device)
+        return state, {n: hist[:, i] for i, n in enumerate(self.HISTORY)}
+
 
 def build_model(config: DycoreConfig, device, model_cls=HeldSuarezModel):
     """The model of `config` on `device`; model_cls: HeldSuarezModel or a

@@ -267,7 +267,7 @@ def dsw_transport(pd_x, pd_y, pt_x, pt_y, uct, vct, m: PaddedMetrics,
     _check("dsw_transport", dev, named)
     ms = _metrics("dsw_transport", m, F, Ny, Nx, dev)
     e = lambda shape: torch.empty(shape, dtype=torch.float32, device=dev)
-    scratch = (e(c), e(c), e(c), e(c), e(xi), e(yi))
+    scratch = (e(xi), e(yi))
     outs = (e(c), e(c), e(xi), e(yi))
     # the nonhydrostatic pass reuses the scratch of the first; delz needs
     # its own pair of flux arrays
@@ -276,7 +276,7 @@ def dsw_transport(pd_x, pd_y, pt_x, pt_y, uct, vct, m: PaddedMetrics,
         nh_out = (e(xi), e(yi), e(c), e(c))
         nh_ptrs = _ptrs(*nh, *nh_out)
         outs = outs + nh_out[2:]
-    _launch("dsw_transport", "Piiii" + "P" * 6 + "fi" + "P" * 18, dev,
+    _launch("dsw_transport", "Piiii" + "P" * 6 + "fi" + "P" * 14, dev,
             [ctypes.addressof(ms), F, Ny, Nx, K,
              *_ptrs(pd_x, pd_y, pt_x, pt_y, uct, vct), dt, hord,
              *_ptrs(*scratch, *outs[:4]), *nh_ptrs])
@@ -302,9 +302,9 @@ def dsw_tracer(qx, qy, pd_x, delp_new, uct, vct, mfx, mfy, m: PaddedMetrics,
                                ("mfx", mfx, xi), ("mfy", mfy, yi)])
     ms = _metrics("dsw_tracer", m, F, Ny, Nx, dev)
     e = lambda shape: torch.empty(shape, dtype=torch.float32, device=dev)
-    scratch = (e(c), e(c), e(xi), e(yi))
+    scratch = (e(xi), e(yi))
     q_new = e(c)
-    _launch("dsw_tracer", "Piiii" + "P" * 8 + "fi" + "P" * 5, dev,
+    _launch("dsw_tracer", "Piiii" + "P" * 8 + "fi" + "P" * 3, dev,
             [ctypes.addressof(ms), F, Ny, Nx, K,
              *_ptrs(qx, qy, pd_x, delp_new, uct, vct, mfx, mfy), dt, hord,
              *_ptrs(*scratch, q_new)])
@@ -388,9 +388,9 @@ def dsw_tracer_acc(qx, qy, pd_x, uacc, vacc, mfx, mfy, m: PaddedMetrics,
                                    ("mfy", mfy, yi)])
     ms = _metrics("dsw_tracer_acc", m, F, Ny, Nx, dev)
     e = lambda shape: torch.empty(shape, dtype=torch.float32, device=dev)
-    scratch = (e(c), e(c), e(xi), e(yi))
+    scratch = (e(xi), e(yi))
     outs = (e(c), e(c))
-    _launch("dsw_tracer_acc", "Piiii" + "P" * 7 + "fi" + "P" * 6, dev,
+    _launch("dsw_tracer_acc", "Piiii" + "P" * 7 + "fi" + "P" * 4, dev,
             [ctypes.addressof(ms), F, Ny, Nx, K,
              *_ptrs(qx, qy, pd_x, uacc, vacc, mfx, mfy), dt, hord,
              *_ptrs(*scratch, *outs)])

@@ -7,8 +7,9 @@ compiled or loaded at import time.
 
 `remap_banded` is the wrapper: for tensors on the CPU it runs the plain
 PyTorch version (ops/remap.py::remap_fields_banded); for CUDA tensors it
-launches the kernel or raises.  `remap_banded.launches` counts kernel
-launches.
+launches the kernel or raises.  It takes any number of fields and hands
+them over in groups of up to MAX_FIELDS sharing (pe1, pe2), one launch (or
+one plain call) per group.  `remap_banded.launches` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -19,16 +20,13 @@ import torch
 from ..remap import _check_kord, remap_fields_banded
 from .build import load_library
 
-MAX_FIELDS = 4  # kMaxFields in the source
+MAX_FIELDS = 4  # kMaxFields in the source: the fields of one launch
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_void_p)
 
 
 def _check_inputs(qs, pe1, pe2):
-    if not 1 <= len(qs) <= MAX_FIELDS:
-        raise ValueError(f"remap_banded takes 1..{MAX_FIELDS} fields, "
-                         f"got {len(qs)}")
     shape = qs[0].shape
     K = shape[-1]
     if K < 2:
@@ -50,12 +48,16 @@ def _check_inputs(qs, pe1, pe2):
 
 def remap_banded(qs, pe1: torch.Tensor, pe2: torch.Tensor, kord: int = 8,
                  band: int = 10):
-    """Banded kord-8 remap of 1..4 fields sharing (pe1, pe2).
+    """Banded kord-8 remap of one or more fields sharing (pe1, pe2).
     qs: list of [..., K]; pe1/pe2: [..., K+1].  Returns a list."""
     _check_kord(kord)
+    if not qs:
+        raise ValueError("remap_banded takes at least one field")
+    groups = [qs[n:n + MAX_FIELDS] for n in range(0, len(qs), MAX_FIELDS)]
     dev = qs[0].device
     if dev.type == "cpu":
-        return remap_fields_banded(qs, pe1, pe2, kord, band)
+        return [o for g in groups
+                for o in remap_fields_banded(g, pe1, pe2, kord, band)]
     if dev.type != "cuda":
         raise ValueError(f"remap_banded: unsupported device {dev}")
     _check_inputs(qs, pe1, pe2)
@@ -63,18 +65,21 @@ def remap_banded(qs, pe1: torch.Tensor, pe2: torch.Tensor, kord: int = 8,
     K = qs[0].shape[-1]
     ncol = qs[0].numel() // K
     band = min(band, K - 1)
-    outs = [torch.empty(q.shape, dtype=q.dtype, device=dev) for q in qs]
-    n = len(qs)
-    q_ptrs = (ctypes.c_void_p * n)(*[q.data_ptr() for q in qs])
-    o_ptrs = (ctypes.c_void_p * n)(*[o.data_ptr() for o in outs])
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(q_ptrs, o_ptrs, n, pe1.data_ptr(), pe2.data_ptr(), ncol, K,
-            band, index, stream)
-    if rc != 0:
-        raise RuntimeError(f"remap_banded: kernel launch failed with CUDA "
-                           f"error {rc}")
-    remap_banded.launches += 1
+    outs = []
+    for g in groups:
+        o = [torch.empty(q.shape, dtype=q.dtype, device=dev) for q in g]
+        n = len(g)
+        q_ptrs = (ctypes.c_void_p * n)(*[q.data_ptr() for q in g])
+        o_ptrs = (ctypes.c_void_p * n)(*[t.data_ptr() for t in o])
+        rc = fn(q_ptrs, o_ptrs, n, pe1.data_ptr(), pe2.data_ptr(), ncol, K,
+                band, index, stream)
+        if rc != 0:
+            raise RuntimeError(f"remap_banded: kernel launch failed with "
+                               f"CUDA error {rc}")
+        remap_banded.launches += 1
+        outs += o
     return outs
 
 

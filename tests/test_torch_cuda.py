@@ -59,22 +59,25 @@ def _column(lead, K, band, seed):
            + (x - idx) * np.take_along_axis(dp1, idx, -1))
     pe2[..., 0], pe2[..., -1] = pe1[..., 0], pe1[..., -1]
     qs = [(100.0 * (rng.standard_normal(lead + (K,)) + 5.0)).astype(np.float32)
-          for _ in range(4)]
+          for _ in range(6)]
     return pe1.astype(np.float32), pe2.astype(np.float32), qs
 
 
 @pytest.mark.parametrize("lead,K,n,band", [((6, 7, 5), 16, 2, 6),
                                            ((6, 6, 7), 16, 1, 6),
                                            ((3, 5, 4), 9, 4, 3),
-                                           ((2, 3), 2, 1, 6)])
+                                           ((2, 3), 2, 1, 6),
+                                           ((6, 7, 5), 16, 6, 6)])
 def test_kernel_matches_plain(cuda, lead, K, n, band):
+    """Up to MAX_FIELDS fields a launch; six take two."""
     pe1, pe2, qs = _column(lead, K, band, seed=11)
     qd = [torch.from_numpy(q).to(cuda) for q in qs[:n]]
     p1, p2 = torch.from_numpy(pe1).to(cuda), torch.from_numpy(pe2).to(cuda)
     before = remap_banded.launches
     got = remap_banded(qd, p1, p2, band=band)
     torch.cuda.synchronize()
-    assert remap_banded.launches == before + 1
+    assert len(got) == n
+    assert remap_banded.launches == before + (1 if n <= 4 else 2)
     want = tremap.remap_fields_banded(qd, p1, p2, band=band)
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == torch.float32
@@ -92,7 +95,7 @@ def test_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError):
         remap_banded([q.t().contiguous().t()], p1, p2)
     with pytest.raises(ValueError):
-        remap_banded([q] * 5, p1, p2)
+        remap_banded([], p1, p2)
 
 
 def test_model_on_card_matches_cpu(cuda):
@@ -270,13 +273,32 @@ def test_dsw_kernel_matches_plain_non_square(cuda, case):
     _within_gate(name, got, getattr(dsw, name + "_plain")(*a))
 
 
-# dsw_csw2 and dsw_wind work on tiles: 32 columns per block in the column
-# stage, 8 x 8 points x 8 levels in the horizontal stages.  Faces whose
-# column count, Ny + 1, Nx + 1 and K are no multiples of the tiles, and one
-# whose corners fill the tiles exactly; K below, at and above a chunk, odd,
-# and the presets' 32 and 72.
+# dsw_csw1, dsw_csw2, dsw_wind and the fvtp2d stage of dsw_transport,
+# dsw_tracer and dsw_tracer_acc work on tiles: 32 columns per block in the
+# column stage, 8 x 8 points x 8 levels in the horizontal stages, with a rim
+# of up to 3 cells.  Faces whose column count, Ny + 1, Nx + 1 and K are no
+# multiples of the tiles, and one whose corners fill the tiles exactly; K
+# below, at and above a chunk, odd, and the presets' 32 and 72.
 TILE_FACES = [(2, 10, 13), (1, 15, 7), (1, 4, 5)]
-TILE_CASES = ["dsw_csw2", "dsw_wind", "dsw_wind blend", "dsw_wind nh"]
+TILE_CASES = ["dsw_csw2", "dsw_wind", "dsw_wind blend", "dsw_wind nh",
+              "dsw_csw1", "dsw_transport", "dsw_transport nh",
+              "dsw_tracer_acc", "dsw_tracer"]
+
+
+def _equal_to_plain(case, a):
+    """One launch of the wrapper, equal to its plain version in every
+    element."""
+    name = case.split()[0]
+    kern = getattr(dsw, name)
+    before = kern.launches
+    got = kern(*a)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = getattr(dsw, name + "_plain")(*a)
+    assert len(got) == len(want)
+    for n, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and bool(g.isfinite().all()), (case, n)
+        assert float((g - w).abs().max()) == 0.0, (case, n)
 
 
 @pytest.mark.parametrize("K", [8, 32, 33, 72])
@@ -286,14 +308,16 @@ TILE_CASES = ["dsw_csw2", "dsw_wind", "dsw_wind blend", "dsw_wind nh"]
 def test_dsw_tile_edges_match_plain(cuda, case, face, K):
     """The tiled kernels equal their plain versions in every element, also
     at the ragged edges of the tiles."""
-    name = case.split()[0]
-    a = _synthetic_args(case, *face, K, seed=7, dev=cuda)
-    got = getattr(dsw, name)(*a)
-    torch.cuda.synchronize()
-    want = getattr(dsw, name + "_plain")(*a)
-    for n, (g, w) in enumerate(zip(got, want)):
-        assert g.shape == w.shape and bool(g.isfinite().all()), (case, n)
-        assert float((g - w).abs().max()) == 0.0, (case, n)
+    _equal_to_plain(case, _synthetic_args(case, *face, K, seed=7, dev=cuda))
+
+
+@pytest.mark.parametrize("K", [1, 2, 3, 4])
+@pytest.mark.parametrize("case", ["dsw_transport nh", "dsw_tracer_acc"])
+def test_fvtp2d_tile_short_columns(cuda, case, K):
+    """The fvtp2d stage (two fields and one) with fewer levels than a chunk:
+    the idle level lanes fetch the last level and write nothing."""
+    _equal_to_plain(case, _synthetic_args(case, 1, 15, 7, K, seed=9,
+                                          dev=cuda))
 
 
 def test_nh_wind_launches_the_column_stage(cuda):

@@ -166,3 +166,44 @@ def test_wrapper_rejects_other_kords():
     q = _fields((2,), 6, 1, seed=5)[0]
     with pytest.raises(NotImplementedError):
         remap_banded([_t(q)], _t(pe1), _t(pe2), kord=6)
+
+
+def _smooth_column(lead, K, band, seed):
+    """(pe1, pe2): pe2 displaced smoothly by up to 0.9 x band/2 layers
+    (interfaces at fractional source index k + a sin(pi k / K)), so that
+    target layers stay comparable to source layers, as the card tests of
+    tests/test_torch_cuda.py make them."""
+    rng = np.random.default_rng(seed)
+    dp1 = rng.uniform(0.5, 1.5, lead + (K,))
+    pe1 = np.concatenate([np.zeros(lead + (1,)), np.cumsum(dp1, -1)], -1)
+    amp = rng.uniform(-1.0, 1.0, lead + (1,)) * 0.45 * min(band, K - 1)
+    k = np.arange(K + 1)
+    x = k + amp * np.sin(np.pi * k / K)
+    idx = np.clip(np.floor(x).astype(int), 0, K - 1)
+    pe2 = (np.take_along_axis(pe1, idx, -1)
+           + (x - idx) * np.take_along_axis(dp1, idx, -1))
+    pe2[..., 0], pe2[..., -1] = pe1[..., 0], pe1[..., -1]
+    return pe1.astype(np.float32), pe2.astype(np.float32)
+
+
+def test_wrapper_takes_more_fields_than_one_launch():
+    """Six fields (a nonhydrostatic run's pt, two tracers, w and delz with
+    one more) through the wrapper, which groups them into launches of up
+    to MAX_FIELDS, against the reference's Pallas kernel in interpret mode
+    on the same inputs; gates RTOL, ATOL."""
+    from geosongpu_tpu_torch.ops.kernels.remap import MAX_FIELDS
+
+    lead, K, band, n = (2, 4, 3), 10, 3, 6
+    assert n > MAX_FIELDS
+    pe1, pe2 = _smooth_column(lead, K, band, seed=21)
+    qs = _fields(lead, K, n, seed=22)
+    got = remap_banded([_t(q) for q in qs], _t(pe1), _t(pe2), band=band)
+    pal = remap_multi_banded_pallas([jnp.asarray(q) for q in qs],
+                                    jnp.asarray(pe1), jnp.asarray(pe2),
+                                    band=band, interpret=True)
+    assert len(got) == n
+    for g, p in zip(got, pal):
+        np.testing.assert_allclose(g.numpy(), np.asarray(p), rtol=RTOL,
+                                   atol=ATOL)
+    with pytest.raises(ValueError):
+        remap_banded([], _t(pe1), _t(pe2), band=band)
