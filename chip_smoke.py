@@ -9,18 +9,22 @@ on any failure (and when no CUDA device is present).
     python3 chip_smoke.py --stages
 
 runs phases 1 and 2 and then only the per-stage view of the fvtp2d
-callers and dsw_csw1 (STAGE_KERNELS): each against its plain version,
-which it must equal (0.0), its median time and, from a torch.profiler
-window of 10 calls, the device time of each __global__ stage it launches.
-Run it from copies of two trees in one call to compare their kernels.
+callers, dsw_csw1 and dsw_nh_pert (STAGE_KERNELS) and of remap_banded at
+the three calls of a c48-L72 and a c192-L72 step: each against its plain
+version, which it must equal (0.0; remap_banded within its gate, so that
+the view runs on an older tree too), its median time and, from a
+torch.profiler window of 10 calls, the device time of each __global__
+stage it launches.  Run it from copies of two trees in one call to compare
+their kernels.
 Without arguments, the phases:
 
 1. device: the card's name and power limit (nvidia-smi), the toolchain;
 2. build: the one kernel library from the checkout's csrc/ sources, with
    ptxas registers and spills per kernel;
 3. remap_banded against its plain PyTorch version at the three c48-L72
-   main-path shapes (max error relative to the plain output <= 1e-5), and
-   with 6 fields, more than one launch takes (two launches);
+   main-path shapes (max error relative to the plain output <= 1e-5), with
+   6 fields, more than one launch takes (two launches), and at the three
+   calls of a c192-L72 step, each with its bound and the share of it;
 4. the substep kernels against their plain versions, over the whole padded
    outputs, on inputs from a real state (init + 2 steps, then the substep
    chain of plain versions): the five hydrostatic kernels at c48-L72; the
@@ -63,11 +67,12 @@ Without arguments, the phases:
 Phases 3 to 5 print the median time of 20 calls (10 at c192), kernel and
 plain.  The second-to-last line is the kernels JSON object, the last line
 {"ok": true, "device": {...}}; the c192-L72 rows of the other four substep
-kernels go on a line of their own before those, {"kernels_c192": [...]},
-with the same keys.  `launches` in the kernels object is the count of
-the fused Held-Suarez path (c192 and nonhydrostatic for those forms), of
-the fused aquaplanet path for gfdl_microphysics and fill_q2_zero, and of
-the gate path for the five kernels only the gate runs.
+kernels and of remap_banded go on a line of their own before those,
+{"kernels_c192": [...]}, with the same keys.  `launches` in the kernels
+object is the count of the fused Held-Suarez path (c192 and
+nonhydrostatic for those forms), of the fused aquaplanet path for
+gfdl_microphysics and fill_q2_zero, and of the gate path for the five
+kernels only the gate runs.
 
 Each kernel's bound in that object is the larger of two times computed
 here from the call's shapes: every input read and every output written
@@ -187,11 +192,14 @@ PORT_STAGES = ("::csw1(", "::csw2_winds(", "::fvtp2d_tile<",
 STAGE_KERNELS = {
     "held_suarez_c48_l72": ("c48", ["dsw_csw1", "dsw_transport",
                                     "dsw_tracer_acc"], 2),
-    "held_suarez_c48_l72_nh_fused": ("nh", ["dsw_transport", "dsw_tracer"],
-                                     2),
+    "held_suarez_c48_l72_nh_fused": ("nh", ["dsw_transport", "dsw_tracer",
+                                            "dsw_nh_pert"], 2),
     "held_suarez_c192_l72_fused": ("c192", ["dsw_csw1", "dsw_transport",
                                             "dsw_tracer_acc"], 1),
 }
+# --stages also takes remap_banded at the step's three calls of these
+# presets' widths (within REL_GATE: the view can run on an older tree)
+REMAP_STAGES = {48: "held_suarez_c48_l72", 192: "held_suarez_c192_l72_fused"}
 # arguments a wrapper takes and checks but whose values no term reads
 UNREAD = {"aer_activation": (2, 3), "moist_rad_coup": (2,),
           "buoyancy": (2,)}
@@ -414,33 +422,94 @@ def device_times(prof):
     return stats
 
 
-def stage_times(torch, dsw, args, names, form, card, reps=20):
-    """--stages: each named kernel against its plain version (0.0 or a
-    failure), its median time over `reps` calls, and the device time per
-    launch of each __global__ it runs in a profiler window of 10 calls."""
+def stage_view(torch, label, kern, plain, card, exact, reps=20):
+    """--stages: one kernel call against its plain version (0.0 with
+    `exact`, else within REL_GATE), its median time over `reps` calls, and
+    the device time per launch of each __global__ it runs in a profiler
+    window of 10 calls."""
     from torch.profiler import ProfilerActivity, profile
 
-    for name in names:
-        a = args[name]
-        kern, plain = getattr(dsw, name), getattr(dsw, name + "_plain")
-        got, want = kern(*a), plain(*a)
-        torch.cuda.synchronize()
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    if exact:
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         if err != 0.0:
-            fail(f"{name} {form}: {err:.3e} from its plain version")
-        ms = median_ms(torch, lambda: kern(*a), reps=reps)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                kern(*a)
-            torch.cuda.synchronize()
-        stages = {n.split("::")[1].split("(")[0]: tc
-                  for n, tc in device_times(prof).items()
-                  if any(s in n for s in PORT_STAGES)}
-        print(f"[stages] {name} {form} {tuple(a[0].shape)}: max abs err "
-              f"{err:.3e}; {ms:.4f} ms (median of {reps}); device ms per "
-              "launch: " + ", ".join(f"{k} {t / c / 1e3:.4f} x{c // 10}"
-                                     for k, (t, c) in stages.items())
-              + f" ({card})")
+            fail(f"{label}: {err:.3e} from its plain version")
+    else:
+        err, _ = compare(label, got, want, False)
+    ms = median_ms(torch, kern, reps=reps)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            kern()
+        torch.cuda.synchronize()
+    stages = {n.split("::")[1].split("(")[0]: tc
+              for n, tc in device_times(prof).items()
+              if any(s in n for s in PORT_STAGES)}
+    print(f"[stages] {label}: max abs err {err:.3e}; {ms:.4f} ms (median of "
+          f"{reps}); device ms per launch: "
+          + ", ".join(f"{k} {t / c / 1e3:.4f} x{c // 10}"
+                      for k, (t, c) in stages.items()) + f" ({card})")
+
+
+def stage_times(torch, dsw, args, names, form, card, reps=20):
+    """--stages of the substep kernels `names` on `args` (0.0 each)."""
+    for name in names:
+        a = args[name]
+        stage_view(torch, f"{name} {form} {tuple(a[0].shape)}",
+                   lambda: getattr(dsw, name)(*a),
+                   lambda: getattr(dsw, name + "_plain")(*a), card, True,
+                   reps)
+
+
+def remap_calls(torch, preset, npx, gen, dev):
+    """The three remap calls of a step of `preset` at c`npx`, on a smooth
+    Lagrangian displacement (displaced_coordinates): pt and the tracer,
+    then the D-grid winds u and v on their staggered columns.  Yields
+    (label, qs, pe1, pe2)."""
+    K, band = preset.npz, preset.remap_band
+    for label, lead, nf, scale in (("pt+q", (6, npx, npx), 2, 300.0),
+                                   ("u", (6, npx + 1, npx), 1, 10.0),
+                                   ("v", (6, npx, npx + 1), 1, 10.0)):
+        pe1, pe2 = displaced_coordinates(torch, lead, K, band, gen, dev)
+        qs = [(scale * (1.0 + 0.1 * torch.randn(lead + (K,), generator=gen,
+                                                device=dev))).contiguous()
+              for _ in range(nf)]
+        yield label, qs, pe1, pe2
+
+
+def check_remap(torch, kremap, plain, preset, npx, gen, dev, card, reps):
+    """Phase 3 at c`npx`: each of a step's three remap calls against the
+    plain version, with its error, median times and bound; returns the
+    step's (max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
+    kord, band = preset.kord, preset.remap_band
+    max_abs_err, kernel_ms, plain_ms, by = 0.0, 0.0, 0.0, [0.0, 0.0]
+    for label, qs, pe1, pe2 in remap_calls(torch, preset, npx, gen, dev):
+        got = kremap.remap_banded(qs, pe1, pe2, kord, band)
+        want = plain(qs, pe1, pe2, kord, band)
+        torch.cuda.synchronize()
+        err, rel = compare(f"remap_banded c{npx} {label}", got, want, False)
+        max_abs_err = max(max_abs_err, err)
+        k_ms = median_ms(torch, lambda: kremap.remap_banded(
+            qs, pe1, pe2, kord, band), reps=reps)
+        p_ms = median_ms(torch, lambda: plain(qs, pe1, pe2, kord, band),
+                         reps=reps)
+        b = bound("remap_banded", qs + [pe1, pe2], got,
+                  points=sum(t.numel() for t in got))
+        kernel_ms += k_ms
+        plain_ms += p_ms
+        by = [x + y for x, y in zip(by, b)]
+        print(f"[kernel] remap_banded c{npx} {label} {len(qs)}x"
+              f"{tuple(qs[0].shape)}: max abs err {err:.3e}, max rel err "
+              f"{rel:.3e}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+              f"{max(b):.4f} ms, {100 * max(b) / k_ms:.1f}% of it (median of "
+              f"{reps}; {card})")
+        del got, want, qs, pe1, pe2
+    print(f"[kernel] remap_banded c{npx}, one step's 3 calls: kernel "
+          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {max(by):.4f} "
+          f"ms, {100 * max(by) / kernel_ms:.1f}% of it ({card})")
+    torch.cuda.empty_cache()
+    return (max_abs_err, kernel_ms, plain_ms, max(by),
+            "bytes" if by[0] >= by[1] else "operations")
 
 
 def column_case(gate, name, d):
@@ -838,44 +907,37 @@ def main() -> int:
             stage_times(torch, dsw, args, names, form, card)
             del args
             torch.cuda.empty_cache()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        for npx in (48, 192):
+            preset = PRESETS[REMAP_STAGES[npx]]
+            for label, qs, pe1, pe2 in remap_calls(torch, preset, npx, gen,
+                                                   dev):
+                a = (qs, pe1, pe2, preset.kord, preset.remap_band)
+                stage_view(torch, f"remap_banded c{npx} {label} {len(qs)}x"
+                           f"{tuple(qs[0].shape)}",
+                           lambda: kremap.remap_banded(*a),
+                           lambda: remap_fields_banded(*a), card, False,
+                           reps=20 if npx == 48 else 10)
+                del a, qs, pe1, pe2
+            torch.cuda.empty_cache()
         return 0
     results = {}   # kernel [form] -> (max_abs_err, ms, plain_ms, bound_ms, by)
 
     # ---- 3. remap_banded against its plain version ------------------------
     preset = PRESETS["held_suarez_c48_l72"]
-    band, K, n = preset.remap_band, preset.npz, preset.npx
+    band, K = preset.remap_band, preset.npz
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    shapes = [("pt+q", (6, n, n), 2, 300.0), ("u", (6, n + 1, n), 1, 10.0),
-              ("v", (6, n, n + 1), 1, 10.0)]
-    max_abs_err, kernel_ms, plain_ms, by = 0.0, 0.0, 0.0, [0.0, 0.0]
-    for label, lead, nf, scale in shapes:
-        pe1, pe2 = displaced_coordinates(torch, lead, K, band, gen, dev)
-        qs = [(scale * (1.0 + 0.1 * torch.randn(lead + (K,), generator=gen,
-                                                device=dev))).contiguous()
-              for _ in range(nf)]
-        got = kremap.remap_banded(qs, pe1, pe2, preset.kord, band)
-        want = remap_fields_banded(qs, pe1, pe2, preset.kord, band)
-        torch.cuda.synchronize()
-        err, rel = compare(f"remap_banded {label}", got, want, False)
-        max_abs_err = max(max_abs_err, err)
-        k_ms = median_ms(torch, lambda: kremap.remap_banded(
-            qs, pe1, pe2, preset.kord, band))
-        p_ms = median_ms(torch, lambda: remap_fields_banded(
-            qs, pe1, pe2, preset.kord, band))
-        kernel_ms += k_ms
-        plain_ms += p_ms
-        by = [x + y for x, y in zip(by, bound(
-            "remap_banded", qs + [pe1, pe2], got,
-            points=sum(t.numel() for t in got)))]
-        print(f"[kernel] remap_banded {label} {nf}x{tuple(qs[0].shape)}: max "
-              f"rel err {rel:.3e}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-              f"(median of 20; {card})")
+    results["remap_banded"] = check_remap(torch, kremap, remap_fields_banded,
+                                          preset, preset.npx, gen, dev, card,
+                                          20)
     # more fields than one launch takes (a nonhydrostatic run with two
     # tracers remaps six): the wrapper groups them, two launches here
-    pe1, pe2 = displaced_coordinates(torch, shapes[0][1], K, band, gen, dev)
-    qs = [(300.0 * (1.0 + 0.1 * torch.randn(shapes[0][1] + (K,),
-                                             generator=gen, device=dev)))
+    lead = (6, preset.npx, preset.npx)
+    pe1, pe2 = displaced_coordinates(torch, lead, K, band, gen, dev)
+    qs = [(300.0 * (1.0 + 0.1 * torch.randn(lead + (K,), generator=gen,
+                                             device=dev)))
           .contiguous() for _ in range(6)]
     before = kremap.remap_banded.launches
     got = kremap.remap_banded(qs, pe1, pe2, preset.kord, band)
@@ -888,14 +950,13 @@ def main() -> int:
     k_ms = median_ms(torch, lambda: kremap.remap_banded(
         qs, pe1, pe2, preset.kord, band))
     print(f"[kernel] remap_banded 6 fields 6x{tuple(qs[0].shape)} (2 "
-          f"launches): max rel err {rel:.3e}; kernel {k_ms:.4f} ms (median "
-          f"of 20; {card})")
+          f"launches): max abs err {err:.3e}, max rel err {rel:.3e}; kernel "
+          f"{k_ms:.4f} ms (median of 20; {card})")
     del qs, got
-    print(f"[kernel] remap_banded, one step's 3 calls: kernel "
-          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{max(by):.4f} ms ({card})")
-    results["remap_banded"] = (max_abs_err, kernel_ms, plain_ms, max(by),
-                               "bytes" if by[0] >= by[1] else "operations")
+    # the c192-L72 step's three calls, where the card sets the step time
+    results["remap_banded c192"] = check_remap(
+        torch, kremap, remap_fields_banded,
+        PRESETS["held_suarez_c192_l72_fused"], 192, gen, dev, card, 10)
 
     # ---- 4. the substep kernels against their plain versions ----------
     models = {}
@@ -988,7 +1049,8 @@ def main() -> int:
         } for key, k, path in entries]
 
     print(json.dumps({"kernels_c192": rows(
-        [(f"{k} c192", k, "c192") for k in C192_KERNELS])}))
+        [(f"{k} c192", k, "c192")
+         for k in C192_KERNELS + ["remap_banded"]])}))
     print(json.dumps({"kernels": rows(entries)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

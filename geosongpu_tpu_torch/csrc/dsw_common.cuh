@@ -24,12 +24,14 @@
 //   wind_update) work on shared-memory tiles of points, k fastest, so that
 //   a warp reads neighbouring addresses; the per-cell updates and
 //   blend_divergence run one thread per (f, j, i, k) point.  The column
-//   stage of dsw_csw2 and dsw_wind takes a tile of neighbouring columns per
-//   block; nh_columns (dsw_nh_pert.cu) still runs one thread per column
-//   walking K.
+//   stages (hydro_columns here, nh_columns in dsw_nh_pert.cu) take a tile
+//   of neighbouring columns per block (column_tile.cuh) and share its
+//   staging and the pe sum (stage_columns_pe).
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "column_tile.cuh"
 
 namespace {
 
@@ -311,22 +313,33 @@ __device__ __forceinline__ void stage_metric(float* __restrict__ s,
 constexpr int kColThreads = 128;
 constexpr int kColTile = 32;
 
-// fn(e, c, k) for the elements e = threadIdx.x + r kColThreads < n of a
-// tile of columns: level k of the tile's column c; (c, k) advance without a
-// division.
-template <class Fn>
-__device__ __forceinline__ void for_tile_elements(int n, int K, Fn fn) {
-  int c = threadIdx.x / K, k = threadIdx.x % K;
-  const int c_step = kColThreads / K, k_step = kColThreads % K;
-  for (int e = threadIdx.x; e < n; e += kColThreads) {
-    fn(e, c, k);
-    c += c_step;
-    k += k_step;
-    if (k >= K) {
-      k -= K;
-      ++c;
+// The column stages' common start, for a block of T threads: stage NR
+// arrays [ncol, K] of the block's nc columns (from column col0) into the row
+// blocks dst[r] (column c at c Kp), then pe of the lower interface of each
+// layer into the row block pe: ptop plus the running sum of the staged row
+// dp, kept in double and rounded once, one thread per column (pe may be dp
+// itself).  Ends with a barrier.
+template <int T, int NR>
+__device__ __forceinline__ void stage_columns_pe(
+    const float* const (&src)[NR], float* const (&dst)[NR],
+    const float* dp, float* pe, long long col0, int nc, int K, int Kp,
+    float ptop) {
+  const long long base = col0 * K;
+  for_tile_elements<T>(nc * K, K, [&](int e, int c, int k) {
+#pragma unroll
+    for (int r = 0; r < NR; ++r) dst[r][c * Kp + k] = src[r][base + e];
+  });
+  __syncthreads();
+  if ((int)threadIdx.x < nc) {
+    const float* x = dp + threadIdx.x * Kp;
+    float* y = pe + threadIdx.x * Kp;
+    double s = 0.0;
+    for (int k = 0; k < K; ++k) {
+      s += (double)x[k];
+      y[k] = ptop + (float)s;
     }
   }
+  __syncthreads();
 }
 
 __global__ void __launch_bounds__(kColThreads)
@@ -345,22 +358,10 @@ hydro_columns(const float* __restrict__ phis, long long ncol, int K, int C,
   const long long base = col0 * K;
   const int tid = threadIdx.x;
 
-  for_tile_elements(n, K, [&](int e, int c, int k) {
-    a[c * Kp + k] = delp[base + e];
-    d[c * Kp + k] = pt[base + e];
-  });
-  __syncthreads();
-  if (tid < nc) {
-    float* col = a + tid * Kp;
-    double s = 0.0;
-    for (int k = 0; k < K; ++k) {
-      s += (double)col[k];
-      col[k] = ptop + (float)s;
-    }
-  }
-  __syncthreads();
+  stage_columns_pe<kColThreads, 2>({delp, pt}, {a, d}, a, a, col0, nc, K,
+                                   Kp, ptop);
   const float rp00 = 1.0f / p00;
-  for_tile_elements(n, K, [&](int, int c, int k) {
+  for_tile_elements<kColThreads>(n, K, [&](int, int c, int k) {
     const float pe = a[c * Kp + k];
     b[c * Kp + k] = powf(pe * rp00, kappa);
     a[c * Kp + k] = logf(pe);
@@ -368,7 +369,7 @@ hydro_columns(const float* __restrict__ phis, long long ncol, int K, int C,
   __syncthreads();
   const float pk_top = powf(ptop * rp00, kappa);
   const float ln_top = logf(ptop);
-  for_tile_elements(n, K, [&](int e, int c, int k) {
+  for_tile_elements<kColThreads>(n, K, [&](int e, int c, int k) {
     const int o = c * Kp + k;
     const float dpk = b[o] - (k > 0 ? b[o - 1] : pk_top);
     const float dln = a[o] - (k > 0 ? a[o - 1] : ln_top);
@@ -387,7 +388,7 @@ hydro_columns(const float* __restrict__ phis, long long ncol, int K, int C,
     }
   }
   __syncthreads();
-  for_tile_elements(n, K, [&](int e, int c, int k) {
+  for_tile_elements<kColThreads>(n, K, [&](int e, int c, int k) {
     phi[base + e] = d[c * Kp + k];
   });
 }

@@ -18,54 +18,98 @@
 // and rounded once, as the plain version's cumsum_k does, pe / P00 is
 // pe * (1/P00), and every product keeps the plain version's order.
 //
-// One thread per (f, j, i) column walks K twice.  What bounds it on this
-// card: 3 inputs and 3 outputs of one field each (30 MB at c48-L72, 9 us
-// at 3.35 TB/s) against one powf, one logf and three divisions per cell;
-// a thread's reads are K floats apart from its neighbour's, so the
-// achieved rate is set by the uncoalesced column walk.  A later design
-// stages a tile of columns through shared memory.
+// A block takes a tile of neighbouring columns, as hydro_columns does
+// (dsw_common.cuh), and shares its staging and pe sum (stage_columns_pe):
+// delp, pt and delz are staged with coalesced reads into rows of odd pitch,
+// one thread per column runs the two double sums (pe down the column, then
+// the reverse sum of the phi' terms) in the plain version's order, and pow,
+// log and the layer formulas run over all (column, level) points of the tile
+// with every thread; rho, p' and phi' are each written once, coalesced.
+// What bounds it on this card: 3 inputs and 3 outputs of one field each (24
+// MB at c48-L72, 7 us at 3.35 TB/s) against one powf, two logf and three
+// divisions per point.
 #include "dsw_common.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(kThreads)
-nh_columns(long long ncol, int K, const float* __restrict__ delp,
+constexpr int kNhRows = 5;  // the tile's row blocks of C x (K | 1) floats
+// 256 threads, 9 points of a 32-column tile each at K = 72: a quarter less
+// device time than 128 at c48-L72, where the launch is a single wave.
+constexpr int kNhThreads = 256;
+
+__global__ void __launch_bounds__(kNhThreads)
+nh_columns(long long ncol, int K, int C, const float* __restrict__ delp,
            const float* __restrict__ pt, const float* __restrict__ delz,
            float ptop, float p00, float kappa, float grav, float rdgas,
            float* __restrict__ pp, float* __restrict__ php,
            float* __restrict__ rho) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= ncol) return;
-  const long long base = t * K;
+  extern __shared__ float col_smem[];
+  const int Kp = K | 1;
+  float* dp = col_smem;      // delp
+  float* tp = dp + C * Kp;   // pt, then the phi' terms, then phi'
+  float* dz = tp + C * Kp;   // delz
+  float* pe = dz + C * Kp;   // pe of the lower interface
+  float* pk = pe + C * Kp;   // pk of the lower interface
+  const long long col0 = (long long)blockIdx.x * C;
+  const int nc = (int)min((long long)C, ncol - col0);
+  const int n = nc * K;
+  const long long base = col0 * K;
+  const int tid = threadIdx.x;
+
+  stage_columns_pe<kNhThreads, 3>({delp, pt, delz}, {dp, tp, dz}, dp, pe,
+                                  col0, nc, K, Kp, ptop);
   const float rp00 = 1.0f / p00;
-  double s = 0.0;
-  float pe_lo = ptop;
-  float pk_lo = powf(ptop * rp00, kappa);
-  float ln_lo = logf(ptop);
-  for (int k = 0; k < K; ++k) {
-    const float dp = delp[base + k];
-    const float dz = delz[base + k];
-    s += (double)dp;
-    const float pe_hi = ptop + (float)s;
-    const float pk_hi = powf(pe_hi * rp00, kappa);
-    const float ln_hi = logf(pe_hi);
-    const float pkz = (pk_hi - pk_lo) / (kappa * (ln_hi - ln_lo));
+  for_tile_elements<kNhThreads>(n, K, [&](int, int c, int k) {
+    pk[c * Kp + k] = powf(pe[c * Kp + k] * rp00, kappa);
+  });
+  __syncthreads();
+  const float pk_top = powf(ptop * rp00, kappa);
+  const float ln_top = logf(ptop);
+  for_tile_elements<kNhThreads>(n, K, [&](int e, int c, int k) {
+    const int o = c * Kp + k;
+    const float pe_hi = pe[o];
+    const float pe_lo = k > 0 ? pe[o - 1] : ptop;
+    const float pk_lo = k > 0 ? pk[o - 1] : pk_top;
+    const float ln_lo = k > 0 ? logf(pe_lo) : ln_top;
+    const float pkz = (pk[o] - pk_lo) / (kappa * (logf(pe_hi) - ln_lo));
     const float p_mid = 0.5f * (pe_hi + pe_lo);
-    const float t1 = pt[base + k] * pkz;
-    const float r = dp / (grav * fmaxf(dz, 1.0f));
-    rho[base + k] = r;
-    pp[base + k] = r * rdgas * t1 - p_mid;
-    php[base + k] = grav * dz - rdgas * t1 * dp / p_mid;
-    pe_lo = pe_hi;
-    pk_lo = pk_hi;
-    ln_lo = ln_hi;
+    const float t1 = tp[o] * pkz;
+    const float r = dp[o] / (grav * fmaxf(dz[o], 1.0f));
+    rho[base + e] = r;
+    pp[base + e] = r * rdgas * t1 - p_mid;
+    tp[o] = grav * dz[o] - rdgas * t1 * dp[o] / p_mid;
+  });
+  __syncthreads();
+  if (tid < nc) {
+    float* col = tp + tid * Kp;
+    double acc = 0.0;
+    for (int k = K - 1; k >= 0; --k) {
+      const float d = col[k];
+      acc += (double)d;
+      col[k] = (float)acc - 0.5f * d;
+    }
   }
-  double acc = 0.0;
-  for (int k = K - 1; k >= 0; --k) {
-    const float d = php[base + k];
-    acc += (double)d;
-    php[base + k] = (float)acc - 0.5f * d;
-  }
+  __syncthreads();
+  for_tile_elements<kNhThreads>(n, K, [&](int e, int c, int k) {
+    php[base + e] = tp[c * Kp + k];
+  });
+}
+
+// The tile shrinks for a K whose five rows of kColTile columns would not
+// fit the 48 KB of shared memory a launch gets without opting in.
+cudaError_t launch_nh(long long ncol, int K, const float* delp,
+                      const float* pt, const float* delz, float ptop,
+                      float p00, float kappa, float grav, float rdgas,
+                      float* pp, float* php, float* rho, cudaStream_t s) {
+  int C = kColTile;
+  const size_t row = kNhRows * (size_t)(K | 1) * sizeof(float);
+  while (C > 1 && C * row > 48 * 1024) C /= 2;
+  if (C * row > 48 * 1024) return cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((ncol + C - 1) / C);
+  nh_columns<<<blocks, kNhThreads, C * row, s>>>(
+      ncol, K, C, delp, pt, delz, ptop, p00, kappa, grav, rdgas, pp, php,
+      rho);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -85,10 +129,8 @@ extern "C" int dsw_nh_pert_f32(int F, int Ny, int Nx, int K,
   if (err != cudaSuccess) return (int)err;
   const auto cf = [](const void* p) { return static_cast<const float*>(p); };
   const auto wf = [](void* p) { return static_cast<float*>(p); };
-  const long long ncol = (long long)F * Ny * Nx;
-  nh_columns<<<blocks_for(ncol), kThreads, 0,
-               static_cast<cudaStream_t>(stream)>>>(
-      ncol, K, cf(delp_f), cf(pt_f), cf(delz_f), ptop, p00, kappa, grav,
-      rdgas, wf(pprime), wf(phiprime), wf(rho1));
-  return (int)cudaGetLastError();
+  return (int)launch_nh((long long)F * Ny * Nx, K, cf(delp_f), cf(pt_f),
+                        cf(delz_f), ptop, p00, kappa, grav, rdgas,
+                        wf(pprime), wf(phiprime), wf(rho1),
+                        static_cast<cudaStream_t>(stream));
 }

@@ -63,13 +63,20 @@ def _column(lead, K, band, seed):
     return pe1.astype(np.float32), pe2.astype(np.float32), qs
 
 
-@pytest.mark.parametrize("lead,K,n,band", [((6, 7, 5), 16, 2, 6),
-                                           ((6, 6, 7), 16, 1, 6),
-                                           ((3, 5, 4), 9, 4, 3),
-                                           ((2, 3), 2, 1, 6),
-                                           ((6, 7, 5), 16, 6, 6)])
+# remap_banded takes a tile of up to 16 columns a block: column counts that
+# are no multiple of it, the D-grid wind shapes of c48-L72 at K = 72 and
+# band 6, and every field count (5 and 6 take two launches)
+REMAP_LEADS = [(6, 49, 48), (6, 48, 49), (37,), (1,), (33,), (5, 7)]
+REMAP_CASES = [((6, 7, 5), 16, 2, 6), ((6, 6, 7), 16, 1, 6),
+               ((3, 5, 4), 9, 4, 3), ((2, 3), 2, 1, 6), ((6, 7, 5), 16, 6, 6)
+               ] + [(lead, 72, n, 6) for lead in REMAP_LEADS
+                    for n in range(1, 7)]
+
+
+@pytest.mark.parametrize("lead,K,n,band", REMAP_CASES)
 def test_kernel_matches_plain(cuda, lead, K, n, band):
-    """Up to MAX_FIELDS fields a launch; six take two."""
+    """Up to MAX_FIELDS fields a launch; six take two.  Equal to the plain
+    version in every element."""
     pe1, pe2, qs = _column(lead, K, band, seed=11)
     qd = [torch.from_numpy(q).to(cuda) for q in qs[:n]]
     p1, p2 = torch.from_numpy(pe1).to(cuda), torch.from_numpy(pe2).to(cuda)
@@ -81,7 +88,7 @@ def test_kernel_matches_plain(cuda, lead, K, n, band):
     want = tremap.remap_fields_banded(qd, p1, p2, band=band)
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == torch.float32
-        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+        assert float((g - w).abs().max()) == 0.0
 
 
 def test_kernel_rejects_bad_inputs(cuda):
@@ -273,16 +280,17 @@ def test_dsw_kernel_matches_plain_non_square(cuda, case):
     _within_gate(name, got, getattr(dsw, name + "_plain")(*a))
 
 
-# dsw_csw1, dsw_csw2, dsw_wind and the fvtp2d stage of dsw_transport,
-# dsw_tracer and dsw_tracer_acc work on tiles: 32 columns per block in the
-# column stage, 8 x 8 points x 8 levels in the horizontal stages, with a rim
-# of up to 3 cells.  Faces whose column count, Ny + 1, Nx + 1 and K are no
-# multiples of the tiles, and one whose corners fill the tiles exactly; K
-# below, at and above a chunk, odd, and the presets' 32 and 72.
+# dsw_csw1, dsw_csw2, dsw_wind, dsw_nh_pert and the fvtp2d stage of
+# dsw_transport, dsw_tracer and dsw_tracer_acc work on tiles: 32 columns per
+# block in the column stages, 8 x 8 points x 8 levels in the horizontal
+# stages, with a rim of up to 3 cells.  Faces whose column count, Ny + 1,
+# Nx + 1 and K are no multiples of the tiles, and one whose corners fill the
+# tiles exactly; K below, at and above a chunk, odd, and the presets' 32
+# and 72.
 TILE_FACES = [(2, 10, 13), (1, 15, 7), (1, 4, 5)]
 TILE_CASES = ["dsw_csw2", "dsw_wind", "dsw_wind blend", "dsw_wind nh",
               "dsw_csw1", "dsw_transport", "dsw_transport nh",
-              "dsw_tracer_acc", "dsw_tracer"]
+              "dsw_tracer_acc", "dsw_tracer", "dsw_nh_pert"]
 
 
 def _equal_to_plain(case, a):
@@ -309,6 +317,19 @@ def test_dsw_tile_edges_match_plain(cuda, case, face, K):
     """The tiled kernels equal their plain versions in every element, also
     at the ragged edges of the tiles."""
     _equal_to_plain(case, _synthetic_args(case, *face, K, seed=7, dev=cuda))
+
+
+# The column stages (hydro_columns of dsw_csw2 and dsw_wind, nh_columns of
+# dsw_nh_pert) also at K of a few levels, odd, and where the tile shrinks
+# below 32 columns (nh_columns above K = 76, hydro_columns above K = 127),
+# on the ragged faces of TILE_FACES.
+@pytest.mark.parametrize("K", [2, 17, 77, 129])
+@pytest.mark.parametrize("face", TILE_FACES,
+                         ids=["x".join(map(str, f)) for f in TILE_FACES])
+@pytest.mark.parametrize("case", ["dsw_nh_pert", "dsw_csw2", "dsw_wind",
+                                  "dsw_wind nh"])
+def test_column_stages_match_plain(cuda, case, face, K):
+    _equal_to_plain(case, _synthetic_args(case, *face, K, seed=11, dev=cuda))
 
 
 @pytest.mark.parametrize("K", [1, 2, 3, 4])

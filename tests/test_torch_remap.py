@@ -207,3 +207,120 @@ def test_wrapper_takes_more_fields_than_one_launch():
                                    atol=ATOL)
     with pytest.raises(ValueError):
         remap_banded([], _t(pe1), _t(pe2), band=band)
+
+
+# -- the premise of the remap_banded kernel's walk ---------------------------
+#
+# csrc/remap_banded.cu forms each source layer's parabola once and, for each
+# target layer l, adds only the contiguous run of source layers whose
+# overlap with [pe2[l], pe2[l+1]] is not empty, in increasing d, where the
+# plain version adds every slot l-band..l+band.  That changes no bit if each
+# slot outside the run adds an exact zero.  These tests hold that premise on
+# the CPU: the walk equals remap_fields_banded bit for bit, and the same
+# walk in the other order does not.
+
+def _run_walk(qs, pe1, pe2, band, reverse=False):
+    """remap_fields_banded as the kernel computes it, one target layer at a
+    time over all columns: the parabolas once per source layer (the plain
+    version's _ppm_edges_k); for target layer l the first source layer of
+    l-band..l+band whose lower interface lies below pe2[l], then the run of
+    layers from there whose upper interface lies above pe2[l+1], each
+    slot's integral added in that order (in the reverse order with
+    `reverse`)."""
+    K = qs[0].shape[-1]
+    band = min(band, K - 1)
+    pe1, pe2 = pe1.reshape(-1, K + 1), pe2.reshape(-1, K + 1)
+    qs = [q.reshape(-1, K) for q in qs]
+    dp1 = pe1[:, 1:] - pe1[:, :-1]
+    rdp1 = 1.0 / dp1
+    edges = [tremap._ppm_edges_k(q, dp1) for q in qs]
+    cols = torch.arange(pe1.shape[0])
+    outs = [torch.empty_like(q) for q in qs]
+    for l in range(K):
+        lo2, hi2 = pe2[:, l], pe2[:, l + 1]
+        k_end = min(K - 1, l + band)
+        k = torch.full_like(cols, max(0, l - band))
+        for _ in range(2 * band + 1):
+            k = k + ((k <= k_end)
+                     & (pe1[cols, (k + 1).clamp(max=K)] <= lo2)).long()
+        run, live = [], torch.ones_like(lo2, dtype=torch.bool)
+        for _ in range(2 * band + 1):
+            kk = k.clamp(max=K - 1)
+            live = live & (k <= k_end) & (pe1[cols, kk] < hi2)
+            run.append((kk, live))
+            k = k + 1
+        tots = [torch.zeros_like(lo2) for _ in qs]
+        for kk, live in (run[::-1] if reverse else run):
+            lo_s, hi_s = pe1[cols, kk], pe1[cols, kk + 1]
+            dp_s, rdp_s = dp1[cols, kk], rdp1[cols, kk]
+            x0 = torch.clamp((torch.maximum(lo_s, lo2) - lo_s) * rdp_s,
+                             0.0, 1.0)
+            x1 = torch.maximum(torch.clamp(
+                (torch.minimum(hi_s, hi2) - lo_s) * rdp_s, 0.0, 1.0), x0)
+            for n, (aL, aR, a6) in enumerate(edges):
+                c = tremap._partial_integral(aL[cols, kk], aR[cols, kk],
+                                             a6[cols, kk], x0, x1) * dp_s
+                tots[n] = torch.where(live, tots[n] + c, tots[n])
+        for out, t in zip(outs, tots):
+            out[:, l] = t * (1.0 / (hi2 - lo2))
+    return [o.reshape(pe2.shape[:1] + (K,)) for o in outs]
+
+
+def _card_columns(lead, K, band, n):
+    """The columns of the card tests (tests/test_torch_cuda.py::_column)."""
+    from test_torch_cuda import _column
+
+    pe1, pe2, qs = _column(lead, K, band, seed=11)
+    return [_t(q) for q in qs[:n]], _t(pe1), _t(pe2)
+
+
+def _assert_walk_is_plain(qs, pe1, pe2, band):
+    want = tremap.remap_fields_banded(qs, pe1, pe2, band=band)
+    got = _run_walk(qs, pe1, pe2, band)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w.reshape(g.shape))
+
+
+@pytest.mark.parametrize("band", [3, 6])
+@pytest.mark.parametrize("lead,K", [((2, 3), 2), ((3, 5, 4), 9),
+                                    ((6, 7, 5), 16), ((37,), 72)])
+def test_kernel_walk_is_the_plain_remap(lead, K, band):
+    _assert_walk_is_plain(*_card_columns(lead, K, band, 4), band)
+
+
+def test_kernel_walk_is_the_plain_remap_on_a_model_state():
+    """The three remap calls of a c12-L8 Held-Suarez step (pt with the
+    tracer, then u and v on their staggered columns), from a state with 3 K
+    of pt noise after one step."""
+    from geosongpu_tpu_torch.core.config import DycoreConfig
+    from geosongpu_tpu_torch.dycore import fv_dynamics
+    from geosongpu_tpu_torch.models.held_suarez import build_model
+
+    cfg = DycoreConfig(npx=12, npz=8, dt=1200.0, n_split=2, hord_tm=6)
+    model = build_model(cfg, "cpu")
+    state = model.run(model.init(perturb=3.0), 1)
+    calls = []
+
+    def record(qs, pe1, pe2, kord, band):
+        calls.append((qs, pe1, pe2, band))
+        return remap_banded(qs, pe1, pe2, kord, band)
+
+    real = fv_dynamics.remap_banded
+    fv_dynamics.remap_banded = record
+    try:
+        model.step(state)
+    finally:
+        fv_dynamics.remap_banded = real
+    assert [len(c[0]) for c in calls] == [2, 1, 1]
+    for qs, pe1, pe2, band in calls:
+        assert band == cfg.remap_band
+        _assert_walk_is_plain(qs, pe1, pe2, band)
+
+
+def test_the_walk_premise_fails_where_it_should():
+    """The same walk, each run taken from its last layer up: the order of
+    the terms shows, so the equality above is able to fail."""
+    qs, pe1, pe2 = _card_columns((37,), 72, 6, 2)
+    want = tremap.remap_fields_banded(qs, pe1, pe2, band=6)
+    got = _run_walk(qs, pe1, pe2, 6, reverse=True)
+    assert not all(torch.equal(g, w) for g, w in zip(got, want))
