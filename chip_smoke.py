@@ -9,13 +9,17 @@ on any failure (and when no CUDA device is present).
     python3 chip_smoke.py --stages
 
 runs phases 1 and 2 and then only the per-stage view of the fvtp2d
-callers, dsw_csw1 and dsw_nh_pert (STAGE_KERNELS) and of remap_banded at
-the three calls of a c48-L72 and a c192-L72 step: each against its plain
-version, which it must equal (0.0; remap_banded within its gate, so that
-the view runs on an older tree too), its median time and, from a
-torch.profiler window of 10 calls, the device time of each __global__
-stage it launches.  Run it from copies of two trees in one call to compare
-their kernels.
+callers, dsw_csw1 and dsw_nh_pert (STAGE_KERNELS), of remap_banded at
+the three calls of a c48-L72 and a c192-L72 step, and of gfdl_microphysics
+and of the fill of three tracers (three single-field fills of contiguous
+copies, as the model called them before the multi-tracer form, and that
+form where the tree has it) on the gate's sounding at 13,824 x 32 and
+221,184 x 72 (COLUMN_STAGES): each against its plain version, which it
+must equal (0.0; remap_banded within its gate, so that the view runs on an
+older tree too), its median time and, from a torch.profiler window of 10
+calls, the device time of each __global__ stage it launches and of all
+the call's device work.  Run it from copies of two trees in one call to
+compare their kernels; `--stages columns` runs the column view alone.
 Without arguments, the phases:
 
 1. device: the card's name and power limit (nvidia-smi), the toolchain;
@@ -38,14 +42,18 @@ Without arguments, the phases:
    max|plain|, 2e-3), for the column-sum order;
 5. the seven column-physics kernels (gfdl_microphysics, fill_q2_zero,
    aer_activation, moist_rad_coup, cup_gf_sh, buoyancy, evap_subl_pdf)
-   against their plain versions, within 1e-5 of max|plain|: on the five
-   datasets of the physics gate (128 x 40, seeds 1000-1004), at a ragged
-   column count (123 x 16), and at the aquaplanet model's 13,824 x 32 -
-   gfdl_microphysics and fill_q2_zero there on the inputs the physics
-   chain hands them after 2 steps from a moist-perturbed state (cloud and
-   rain present), the five others on the gate's sounding at that shape;
-   gfdl_microphysics is also timed at 13,824 x 72 and 221,184 x 72, the
-   column counts of c48-L72 and c192-L72;
+   against their plain versions, within 1e-5 of max|plain|, and
+   gfdl_microphysics and fill_q2_zero (TILED) equal to them in every
+   element: on the five datasets of the physics gate (128 x 40, seeds
+   1000-1004), at a ragged column count (123 x 16), and at the aquaplanet
+   model's 13,824 x 32 - gfdl_microphysics and fill_q2_zero there on the
+   inputs the physics chain hands them after 2 steps from a moist-perturbed
+   state (cloud and rain present; the fill in its multi-tracer form on the
+   state's tracer array, the row the kernels line reports, and in its
+   single-field form on each tracer), the five others on the gate's
+   sounding at that shape; gfdl_microphysics and both forms of the fill
+   also at 13,824 x 72 and 221,184 x 72, the column counts of c48-L72 and
+   c192-L72;
 6. the dual-build gate of the physics kernels as a path of its own, with
    the counts set to 0 before and read after: each primary against its
    hand kernel over the five datasets, relative RMS <= 1e-4 per variable,
@@ -71,8 +79,8 @@ kernels and of remap_banded go on a line of their own before those,
 {"kernels_c192": [...]}, with the same keys.  `launches` in the kernels
 object is the count of the fused Held-Suarez path (c192 and
 nonhydrostatic for those forms), of the fused aquaplanet path for
-gfdl_microphysics and fill_q2_zero, and of the gate path for the five
-kernels only the gate runs.
+gfdl_microphysics, fill_q2_zero and cup_gf_sh, and of the gate path for
+the four kernels only the gate runs.
 
 Each kernel's bound in that object is the larger of two times computed
 here from the call's shapes: every input read and every output written
@@ -137,6 +145,8 @@ KERNELS = {
                       False),
 }
 COLUMN_PHYSICS = list(KERNELS)[8:]
+# the column kernels on tiles of columns: equal to their plain versions
+TILED = ("gfdl_microphysics", "fill_q2_zero")
 # Arithmetic of the plain version per output point, each PPM edge counted
 # once per cell (a ppm_flux ~33 operations with the hord-8 limiter, an
 # fvtp2d ~150 per field, a corner interpolation ~15, a column integral ~60
@@ -200,6 +210,8 @@ STAGE_KERNELS = {
 # --stages also takes remap_banded at the step's three calls of these
 # presets' widths (within REL_GATE: the view can run on an older tree)
 REMAP_STAGES = {48: "held_suarez_c48_l72", 192: "held_suarez_c192_l72_fused"}
+# --stages also takes the two tiled column kernels at these (columns, K)
+COLUMN_STAGES = ((6 * 48 * 48, 32), (6 * 192 * 192, 72))
 # arguments a wrapper takes and checks but whose values no term reads
 UNREAD = {"aer_activation": (2, 3), "moist_rad_coup": (2,),
           "buoyancy": (2,)}
@@ -221,12 +233,13 @@ PATHS = {
         "dsw_tracer": 6, "dsw_nh_pert": 6, "remap_banded": 3}),
     # c48-L32, three tracers: dsw_tracer_acc 3 tracers x q_split 2; the
     # remap takes pt and the three tracers in one call, then u, then v;
-    # the physics fills qv, ql and qr and runs the microphysics once
+    # the physics fills qv, ql and qr in one launch, mixes by cup_gf_sh and
+    # runs the microphysics once
     "aquaplanet_c48_l32": ("aqua-eager", 10, {"remap_banded": 3}),
     "aquaplanet_c48_l32_fused": ("aqua", 10, {
         "dsw_csw1": 6, "dsw_csw2": 6, "dsw_transport": 6, "dsw_wind": 6,
-        "dsw_tracer_acc": 6, "remap_banded": 3, "fill_q2_zero": 3,
-        "gfdl_microphysics": 1}),
+        "dsw_tracer_acc": 6, "remap_banded": 3, "fill_q2_zero": 1,
+        "cup_gf_sh": 1, "gfdl_microphysics": 1}),
 }
 
 
@@ -425,8 +438,8 @@ def device_times(prof):
 def stage_view(torch, label, kern, plain, card, exact, reps=20):
     """--stages: one kernel call against its plain version (0.0 with
     `exact`, else within REL_GATE), its median time over `reps` calls, and
-    the device time per launch of each __global__ it runs in a profiler
-    window of 10 calls."""
+    the device time per launch of each __global__ it runs and of all its
+    device work per call in a profiler window of 10 calls."""
     from torch.profiler import ProfilerActivity, profile
 
     got, want = kern(), plain()
@@ -442,13 +455,16 @@ def stage_view(torch, label, kern, plain, card, exact, reps=20):
         for _ in range(10):
             kern()
         torch.cuda.synchronize()
+    times = device_times(prof)
     stages = {n.split("::")[1].split("(")[0]: tc
-              for n, tc in device_times(prof).items()
+              for n, tc in times.items()
               if any(s in n for s in PORT_STAGES)}
+    total = sum(t for t, _ in times.values()) / 10 / 1e3
     print(f"[stages] {label}: max abs err {err:.3e}; {ms:.4f} ms (median of "
           f"{reps}); device ms per launch: "
           + ", ".join(f"{k} {t / c / 1e3:.4f} x{c // 10}"
-                      for k, (t, c) in stages.items()) + f" ({card})")
+                      for k, (t, c) in stages.items())
+          + f"; all device work {total:.4f} ms per call ({card})")
 
 
 def stage_times(torch, dsw, args, names, form, card, reps=20):
@@ -459,6 +475,38 @@ def stage_times(torch, dsw, args, names, form, card, reps=20):
                    lambda: getattr(dsw, name)(*a),
                    lambda: getattr(dsw, name + "_plain")(*a), card, True,
                    reps)
+
+
+def column_stages(torch, gate, kcol, kmic, dev, card):
+    """--stages of gfdl_microphysics and of the fill of three tracers on the
+    gate's sounding at COLUMN_STAGES (0.0 each): the fill as the model
+    called it before its multi-tracer form (a contiguous copy of each
+    tracer slice, one launch each) and, where the tree has it, that form
+    (one launch)."""
+    tracers = getattr(kcol, "fill_q2_zero_tracers", None)
+    for ncol, K in COLUMN_STAGES:
+        d = {k: torch.as_tensor(v, device=dev)
+             for k, v in gate.datasets(1000, (ncol, K)).items()}
+        a = gate.arguments("GFDLMicrophysics", d)
+        reps = 20 if ncol == AQUA_COLUMNS else 10
+        stage_view(torch, f"gfdl_microphysics {(ncol, K)}",
+                   lambda: kmic.gfdl_microphysics(*a),
+                   lambda: kmic.gfdl_microphysics_plain(*a), card, True,
+                   reps)
+        q, dp = three_tracers(torch, d), d["delp"]
+        stage_view(torch, f"fill_q2_zero, 3 tracer copies + 3 launches "
+                   f"{tuple(q.shape)}",
+                   lambda: [kcol.fill_q2_zero(q[..., n].contiguous(), dp)
+                            for n in range(3)],
+                   lambda: [kcol.fill_q2_zero_plain(q[..., n], dp)
+                            for n in range(3)], card, True, reps)
+        if tracers is not None:
+            stage_view(torch, f"fill_q2_zero_tracers, 1 launch "
+                       f"{tuple(q.shape)}", lambda: tracers(q, dp, 3),
+                       lambda: kcol.fill_q2_zero_tracers_plain(q, dp, 3),
+                       card, True, reps)
+        del d, a, q, dp
+        torch.cuda.empty_cache()
 
 
 def remap_calls(torch, preset, npx, gen, dev):
@@ -532,26 +580,32 @@ def outputs_of(out):
 
 
 def check_column_kernel(torch, name, case, label, card, errors, results=None,
-                        reps=20):
+                        reps=20, counter=None, points=None):
     """One column kernel against its plain version on `case`, within
-    REL_GATE of max|plain| per output; errors[name] keeps the largest
-    absolute error seen.  With `results`, also the median times and the
-    bound: results[name] = (max_abs_err, ms, plain_ms, bound_ms, by)."""
+    REL_GATE of max|plain| per output, and equal to it in every element for
+    the TILED kernels; errors[name] keeps the largest absolute error seen.
+    The call must count one launch on `counter` (default: the wrapper of
+    `case`).  With `results`, also the median times and the bound over
+    `points` (default: bound's): results[name] = (max_abs_err, ms,
+    plain_ms, bound_ms, by)."""
     kern, plain, args, reads = case
-    before = kern.launches
+    counter = counter or kern
+    before = counter.launches
     got, want = outputs_of(kern(*args)), outputs_of(plain(*args))
     torch.cuda.synchronize()
-    if kern.launches != before + 1:
+    if counter.launches != before + 1:
         fail(f"{name} {label}: the wrapper counted "
-             f"{kern.launches - before} launches for one call")
+             f"{counter.launches - before} launches for one call")
     err, rel = compare(f"{name} {label}", got, want, False)
+    if name in TILED and err != 0.0:
+        fail(f"{name} {label}: {err:.3e} from its plain version, not 0.0")
     errors[name] = max(errors.get(name, 0.0), err)
     shape = tuple(got[0].shape)
     if results is None:
         return err, rel
     k_ms = median_ms(torch, lambda: kern(*args), reps=reps)
     p_ms = median_ms(torch, lambda: plain(*args), reps=reps)
-    by = bound(name, tensors_of(torch, reads, ()), got)
+    by = bound(name, tensors_of(torch, reads, ()), got, points)
     b_ms, b_by = max(by), ("bytes" if by[0] >= by[1] else "operations")
     results[name] = (errors[name], k_ms, p_ms, b_ms, b_by)
     print(f"[kernel] {name} {label} {shape}: max abs err {err:.3e}, max rel "
@@ -583,22 +637,42 @@ def moisten(torch, np, state):
     return dataclasses.replace(state, q=q)
 
 
+def three_tracers(torch, d):
+    """A tracer array [..., K, 3] laid out as the model state's, each
+    tracer with negative values, from a dataset of the gate."""
+    return torch.stack([d["q_neg"], d["ql"] - 2e-4, d["qr"] - 1e-4], dim=-1)
+
+
 def check_column_physics(torch, np, gate, model, dev, card, results):
     """Phase 5: the seven column-physics kernels against their plain
     versions at the gate's shape, a ragged one and the model's."""
+    from geosongpu_tpu_torch.ops.kernels import columns as kcol
+
     errors = {}
 
-    def cases(seed, shape):
-        d = {k: torch.as_tensor(v, device=dev)
-             for k, v in gate.datasets(seed, shape).items()}
+    def dataset(seed, shape):
+        return {k: torch.as_tensor(v, device=dev)
+                for k, v in gate.datasets(seed, shape).items()}
+
+    def cases(d):
         return {gate.WRAPPERS[name].__name__: column_case(gate, name, d)
                 for name in gate.KERNELS}
+
+    def check_fill_tracers(q, delp, label, results, reps=20):
+        """The multi-tracer form of the fill, which counts on fill_q2_zero,
+        with its bound over its three outputs."""
+        check_column_kernel(
+            torch, "fill_q2_zero", (kcol.fill_q2_zero_tracers,
+                                    kcol.fill_q2_zero_tracers_plain,
+                                    (q, delp, 3), (q, delp)),
+            label, card, errors, results, reps, counter=kcol.fill_q2_zero,
+            points=3 * delp.numel())
 
     for label, seeds, shape in (("gate", range(1000, 1005), GATE_SHAPE),
                                 ("ragged", (7,), RAGGED_SHAPE)):
         worst = {}
         for seed in seeds:
-            for name, case in cases(seed, shape).items():
+            for name, case in cases(dataset(seed, shape)).items():
                 _, rel = check_column_kernel(torch, name, case,
                                              f"{label} seed {seed}", card,
                                              errors)
@@ -622,27 +696,33 @@ def check_column_physics(torch, np, gate, model, dev, card, results):
     if not (cloudy[0] and cloudy[1] and sum(negative)):
         fail("the aquaplanet check state has no cloud, no rain or no "
              "undershoot: the kernels would be checked on trivial inputs")
-    at_model = cases(1000, (AQUA_COLUMNS, delp.shape[-1]))
+    at_model = cases(dataset(1000, (AQUA_COLUMNS, delp.shape[-1])))
     at_model["gfdl_microphysics"] = at_model["gfdl_microphysics"][:2] + (
         mp_args, mp_args[:7])
-    fill = at_model["fill_q2_zero"][:2]
-    worst_q = max(range(3), key=lambda n: negative[n])
+    # the fill: the single-field form on each tracer, then the multi-tracer
+    # form on the state's tracer array, as the step calls it
+    fill = at_model.pop("fill_q2_zero")[:2]
     for n in range(3):
-        if n != worst_q:
-            check_column_kernel(torch, "fill_q2_zero",
-                                fill + ((tracers[n], delp), ()),
-                                f"tracer {n}", card, errors)
-    at_model["fill_q2_zero"] = fill + ((tracers[worst_q], delp),) * 2
+        check_column_kernel(torch, "fill_q2_zero",
+                            fill + ((tracers[n], delp), ()),
+                            f"tracer {n}", card, errors)
+    check_fill_tracers(st.q, delp, "model shape, the state's 3 tracers",
+                       results)
     for name, case in at_model.items():
         check_column_kernel(torch, name, case, "model shape", card, errors,
                             results)
 
-    # where gfdl_microphysics stops being bound by its launch
+    # the c48-L72 and c192-L72 column counts, where gfdl_microphysics stops
+    # being bound by its launch
     for ncol in (AQUA_COLUMNS, 16 * AQUA_COLUMNS):
-        case = cases(1000, (ncol, 72))["gfdl_microphysics"]
-        check_column_kernel(torch, "gfdl_microphysics", case, "sounding",
-                            card, errors, results={}, reps=10)
-        del case
+        d = dataset(1000, (ncol, 72))
+        for name, case in cases(d).items():
+            if name in TILED:
+                check_column_kernel(torch, name, case, "sounding", card,
+                                    errors, results={}, reps=10)
+        check_fill_tracers(three_tracers(torch, d), d["delp"],
+                           "sounding, 3 tracers", {}, reps=10)
+        del d
         torch.cuda.empty_cache()
     for name in results:
         if name in errors:
@@ -900,27 +980,29 @@ def main() -> int:
           f" -> {lib.path.parent.name}/{lib.path.name}")
     print_build_log(lib.build_log)
     if "--stages" in sys.argv[1:]:
-        for pname, (form, names, steps) in STAGE_KERNELS.items():
-            model = build_model_for(pname)(PRESETS[pname], dev)
-            args = kernel_inputs(torch, np, model, dev, steps=steps)
-            del model
-            stage_times(torch, dsw, args, names, form, card)
-            del args
-            torch.cuda.empty_cache()
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(0)
-        for npx in (48, 192):
-            preset = PRESETS[REMAP_STAGES[npx]]
-            for label, qs, pe1, pe2 in remap_calls(torch, preset, npx, gen,
-                                                   dev):
-                a = (qs, pe1, pe2, preset.kord, preset.remap_band)
-                stage_view(torch, f"remap_banded c{npx} {label} {len(qs)}x"
-                           f"{tuple(qs[0].shape)}",
-                           lambda: kremap.remap_banded(*a),
-                           lambda: remap_fields_banded(*a), card, False,
-                           reps=20 if npx == 48 else 10)
-                del a, qs, pe1, pe2
-            torch.cuda.empty_cache()
+        if "columns" not in sys.argv[1:]:
+            for pname, (form, names, steps) in STAGE_KERNELS.items():
+                model = build_model_for(pname)(PRESETS[pname], dev)
+                args = kernel_inputs(torch, np, model, dev, steps=steps)
+                del model
+                stage_times(torch, dsw, args, names, form, card)
+                del args
+                torch.cuda.empty_cache()
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+            for npx in (48, 192):
+                preset = PRESETS[REMAP_STAGES[npx]]
+                for label, qs, pe1, pe2 in remap_calls(torch, preset, npx, gen,
+                                                       dev):
+                    a = (qs, pe1, pe2, preset.kord, preset.remap_band)
+                    stage_view(torch, f"remap_banded c{npx} {label} {len(qs)}x"
+                               f"{tuple(qs[0].shape)}",
+                               lambda: kremap.remap_banded(*a),
+                               lambda: remap_fields_banded(*a), card, False,
+                               reps=20 if npx == 48 else 10)
+                    del a, qs, pe1, pe2
+                torch.cuda.empty_cache()
+        column_stages(torch, gate, kcol, kmic, dev, card)
         return 0
     results = {}   # kernel [form] -> (max_abs_err, ms, plain_ms, bound_ms, by)
 
@@ -1029,7 +1111,8 @@ def main() -> int:
         ("dsw_nh_pert", "dsw_nh_pert", "nh"),
         ("gfdl_microphysics", "gfdl_microphysics", "aqua"),
         ("fill_q2_zero", "fill_q2_zero", "aqua")] + [
-        (k, k, "gate") for k in COLUMN_PHYSICS[2:]]
+        (k, k, "aqua" if k == "cup_gf_sh" else "gate")
+        for k in COLUMN_PHYSICS[2:]]
     for key, k, path in entries:
         if launches[path][k] < 1:
             fail(f"{key}: not launched on the {path} path")

@@ -35,8 +35,8 @@ pair its Benchmark action times:
 
 * `aquaplanet_c48_l32_fused`: pallas_dycore=True and
   pallas_microphysics=True: the fused substep, dsw_tracer_acc for each of
-  the three tracers, and the CUDA kernels fill_q2_zero (three times a
-  step) and gfdl_microphysics;
+  the three tracers, and the CUDA kernels fill_q2_zero (the three tracers
+  in one launch a step), cup_gf_sh and gfdl_microphysics;
 * `aquaplanet_c48_l32`: both flags off, everything in plain PyTorch but
   the banded remap.
 

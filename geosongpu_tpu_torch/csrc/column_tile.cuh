@@ -33,4 +33,27 @@ __device__ __forceinline__ void for_tile_elements(int n, int L, Fn fn) {
   }
 }
 
+// *dst = *src as an asynchronous copy of 4 bytes (cp.async) from device
+// into shared memory: a thread starts every copy of its part of a tile
+// before it waits for them (async_copy_wait), so that many loads are in
+// flight at once where a plain staging loop waits for each in turn.
+__device__ __forceinline__ void async_copy4(float* dst, const float* src) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+#else
+  *dst = *src;
+#endif
+}
+
+// Waits for this thread's asynchronous copies; a __syncthreads() after it
+// makes every thread's copies visible to the block.
+__device__ __forceinline__ void async_copy_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
 }  // namespace

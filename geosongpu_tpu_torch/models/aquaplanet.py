@@ -14,11 +14,12 @@ physics chain of a step is
 
 Tracer layout: q[..., 0] = qv, q[..., 1] = ql, q[..., 2] = qr.
 
-With `pallas_microphysics=True` the three fills and the microphysics go
-through the kernel wrappers of ops/kernels/{columns,microphysics}.py: CUDA
-kernels for a state on a card, their plain versions for one on the CPU.
-With False they are the primaries of physics/standalone.py everywhere.
-cup_gf_sh on the model path is the primary in either case.
+With `pallas_microphysics=True` the fill of the three tracers (one call of
+fill_q2_zero_tracers on the state's tracer array), the shallow convection
+and the microphysics go through the kernel wrappers of
+ops/kernels/{columns,microphysics}.py: CUDA kernels for a state on a card,
+their plain versions for one on the CPU.  With False they are the
+primaries of physics/standalone.py everywhere.
 """
 from __future__ import annotations
 
@@ -76,11 +77,10 @@ class AquaplanetModel(held_suarez.HeldSuarezModel):
                                 torch.full_like(t, 1e-6))
         return dataclasses.replace(state, q=q)
 
-    def microphysics_inputs(self, state: DycoreState,
-                            fill=primary.fill_q2_zero):
-        """The physics chain up to the microphysics: filling (by `fill`),
-        surface fluxes and shallow convection -> (pkz, (t, qv, ql, qr, qi,
-        p_mid, delp, dt)), the second being the microphysics' arguments."""
+    def microphysics_inputs(self, state: DycoreState):
+        """The physics chain up to the microphysics: filling, surface fluxes
+        and shallow convection -> (pkz, (t, qv, ql, qr, qi, p_mid, delp,
+        dt)), the second being the microphysics' arguments."""
         cfg = self.config
         dt = cfg.dt
         delp = state.delp.contiguous()
@@ -88,11 +88,15 @@ class AquaplanetModel(held_suarez.HeldSuarezModel):
         t = state.pt * pkz
         pe = interfaces_from_delp(delp, cfg.ptop)
         p_mid = 0.5 * (pe[..., 1:] + pe[..., :-1])
-        # clean advection undershoots conservatively before physics; the
-        # tracer slices are strided views, the kernels take contiguous
-        # columns
-        qv, ql, qr = (fill(state.q[..., n].contiguous(), delp)
-                      for n in range(3))
+        # clean advection undershoots conservatively before physics
+        if cfg.pallas_microphysics:
+            qv, ql, qr = kcolumns.fill_q2_zero_tracers(state.q.contiguous(),
+                                                       delp, 3)
+            shallow = kcolumns.cup_gf_sh
+        else:
+            qv, ql, qr = (primary.fill_q2_zero(state.q[..., n], delp)
+                          for n in range(3))
+            shallow = primary.cup_gf_sh
 
         # ---- surface fluxes (bulk, lowest layer) ------------------------
         wind = torch.sqrt(state.ua[..., -1] ** 2
@@ -106,19 +110,15 @@ class AquaplanetModel(held_suarez.HeldSuarezModel):
         t[..., -1] += shf * GRAV * dt / (CP_AIR * dp_bot)
 
         # ---- shallow convection -----------------------------------------
-        t, qv = primary.cup_gf_sh(t, qv, p_mid, delp, dt)
+        t, qv = shallow(t, qv, p_mid, delp, dt)
         return pkz, (t, qv, ql, qr, torch.zeros_like(ql), p_mid, delp, dt)
 
     def physics(self, state: DycoreState) -> DycoreState:
         """The moist physics chain alone, on the state the dynamics left."""
         cfg = self.config
-        if cfg.pallas_microphysics:
-            fill = kcolumns.fill_q2_zero
-            microphysics = kmicro.gfdl_microphysics
-        else:
-            fill = primary.fill_q2_zero
-            microphysics = primary.gfdl_microphysics
-        pkz, args = self.microphysics_inputs(state, fill)
+        microphysics = (kmicro.gfdl_microphysics if cfg.pallas_microphysics
+                        else primary.gfdl_microphysics)
+        pkz, args = self.microphysics_inputs(state)
         t, qv, ql, qr, _qi, _precip = microphysics(*args)
 
         # ---- radiative relaxation (Held-Suarez style, weak) -------------

@@ -1,6 +1,9 @@
 """Column-physics kernels as hand-written CUDA: fill_q2_zero
 (csrc/fill_q2_zero.cu) and aer_activation, moist_rad_coup, cup_gf_sh
-(csrc/column_kernels.cu).
+(csrc/column_kernels.cu).  fill_q2_zero has a second form,
+`fill_q2_zero_tracers`, which fills the first n tracers of the model
+state's tracer array [..., K, nq] in one launch of the same kernel and
+counts on `fill_q2_zero.launches`.
 
 Counterparts of geosongpu_tpu/ops/pallas/columns.py: `fill_q2_zero` of
 fill_q2_zero_pallas (:99), and the three others of the generic fuser
@@ -16,8 +19,9 @@ tensors runs the plain version.  Given CUDA tensors it checks that every
 input is a contiguous float32 [..., K] tensor of one shape on one device,
 flattens the leading axes to columns, allocates the outputs with
 torch.empty, launches the C entry on the current stream and raises on a
-CUDA error; a strided view such as `state.q[..., 0]` is refused, the caller
-makes it contiguous.  Nothing is compiled or loaded at import time.
+CUDA error; a strided view such as `state.q[..., 0]` is refused (the
+tracers of a state go to `fill_q2_zero_tracers` whole).  Nothing is
+compiled or loaded at import time.
 """
 from __future__ import annotations
 
@@ -54,6 +58,12 @@ moist_rad_coup_plain = primary.moist_rad_coup
 cup_gf_sh_plain = primary.cup_gf_sh
 
 
+def fill_q2_zero_tracers_plain(q, delp, n: int):
+    """fill_q2_zero_plain of each of the first n tracers of q [..., K, nq]
+    -> n tensors [..., K]."""
+    return tuple(fill_q2_zero_plain(q[..., t], delp) for t in range(n))
+
+
 # --------------------------------------------------------------------------
 # wrappers
 # --------------------------------------------------------------------------
@@ -66,10 +76,33 @@ def fill_q2_zero(q, delp):
     dev, shape, ncol, K = column_extents("fill_q2_zero",
                                          [("q", q), ("delp", delp)])
     out = torch.empty(shape, dtype=torch.float32, device=dev)
-    launch("fill_q2_zero", "li" + "PPP", dev,
-           [ncol, K, *_ptrs(q, delp, out)])
+    launch("fill_q2_zero", "liii" + "PPP", dev,
+           [ncol, K, 1, 1, *_ptrs(q, delp, out)])
     fill_q2_zero.launches += 1
     return out
+
+
+def fill_q2_zero_tracers(q, delp, n: int):
+    """fill_q2_zero of the first `n` tracers of a tracer array q [..., K,
+    nq], as the model state holds it, in one launch: no tracer slice is
+    copied and delp is read once -> n contiguous tensors [..., K]."""
+    if device_of("fill_q2_zero_tracers: q", q).type == "cpu":
+        return fill_q2_zero_tracers_plain(q, delp, n)
+    dev, shape, ncol, K = column_extents("fill_q2_zero_tracers",
+                                         [("delp", delp)])
+    if q.dim() != len(shape) + 1:
+        raise ValueError(f"fill_q2_zero_tracers: q must be [..., K, nq] "
+                         f"over delp's {shape}, got {tuple(q.shape)}")
+    nq = q.shape[-1]
+    check_tensors("fill_q2_zero_tracers", dev, [("q", q, shape + (nq,))])
+    if not (isinstance(n, int) and 1 <= n <= nq):
+        raise ValueError(f"fill_q2_zero_tracers: n must be an int in 1.."
+                         f"{nq}, got {n!r}")
+    out = torch.empty((n,) + shape, dtype=torch.float32, device=dev)
+    launch("fill_q2_zero", "liii" + "PPP", dev,
+           [ncol, K, nq, n, *_ptrs(q, delp, out)])
+    fill_q2_zero.launches += 1
+    return tuple(out.unbind(0))
 
 
 def aer_activation(num_aer, w, t, p, sigma_g: float = 2.0,

@@ -1,7 +1,9 @@
 """Tests that need an NVIDIA card: the CUDA kernels (remap_banded, the
 fused substep kernels in every form - hydrostatic, nonhydrostatic, blend -
-and the seven column-physics kernels) against their plain PyTorch versions,
-their input checks, the physics gate on the card, and the port's models on
+and the seven column-physics kernels, gfdl_microphysics and fill_q2_zero in
+every element at the edges of their tiles of columns, fill_q2_zero in its
+multi-tracer form too) against their plain PyTorch versions, their input
+checks, the physics gate on the card, and the port's models on
 the card against the CPU: Held-Suarez eager, fused, nonhydrostatic with
 per-substep tracers and the blend damping form, and the fused aquaplanet
 model.  They skip without CUDA.
@@ -496,13 +498,107 @@ def test_physics_gate_on_card(cuda, name):
     assert 0.0 <= worst <= gate.REL_TOL
 
 
+# ---- gfdl_microphysics and fill_q2_zero on tiles of columns ---------------
+
+TILE_KS = [1, 2, 31, 32, 33, 72, 129]
+# 1, C - 1, C and C + 1 for tiles of 16 columns (gfdl_microphysics at K
+# 129) and of 32 (the others), and a ragged 123
+TILE_NCOLS = [1, 15, 16, 17, 31, 32, 33, 123]
+
+
+def _sounding(ncol, K, seed, dev):
+    """The physics gate's sounding at (ncol, K) for any K >= 1 (its recipe
+    takes two levels at least: one level is the top one of two)."""
+    from geosongpu_tpu_torch.physics import standalone_gate as gate
+
+    d = gate.datasets(seed, (ncol, max(K, 2)))
+    return {k: torch.as_tensor(np.ascontiguousarray(v[:, :K]), device=dev)
+            for k, v in d.items()}
+
+
+@pytest.mark.parametrize("ncol", TILE_NCOLS)
+@pytest.mark.parametrize("K", TILE_KS)
+@pytest.mark.parametrize("name", ["GFDLMicrophysics", "FillQ2Zero"])
+def test_column_tile_kernel_equals_plain(cuda, name, K, ncol):
+    """Every output equal to the plain version's in every element, at the
+    tile's edges and at a ragged column count."""
+    import sys
+
+    from geosongpu_tpu_torch.physics import standalone_gate as gate
+
+    kern = gate.WRAPPERS[name]
+    plain = getattr(sys.modules[kern.__module__], kern.__name__ + "_plain")
+    args = gate.arguments(name, _sounding(ncol, K, 2000 + K + ncol, cuda))
+    before = kern.launches
+    got = _tensors(kern(*args))
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = _tensors(plain(*args))
+    assert len(got) == len(want)
+    for n, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and bool(g.isfinite().all()), (name, n)
+        assert torch.equal(g, w), (name, n, float((g - w).abs().max()))
+
+
+def _tracer_array(lead, K, nq, seed, dev):
+    """(q [..., K, nq] as the model state lays it out, delp [..., K]), with
+    negative values in every tracer."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(1e-4, 3e-4, lead + (K, nq)).astype(np.float32)
+    dp = np.linspace(500.0, 2500.0, K, dtype=np.float32)
+    delp = (dp * (1.0 + 0.2 * rng.random(lead + (K,)))).astype(np.float32)
+    return torch.as_tensor(q, device=dev), torch.as_tensor(delp, device=dev)
+
+
+@pytest.mark.parametrize("K", [1, 2, 32, 72, 129])
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_fill_tracers_equals_single_field(cuda, n, K):
+    """The multi-tracer form on a [..., K, 3] tracer array: one launch,
+    each output equal to the single-field kernel on the contiguous copy of
+    its tracer and to the plain version."""
+    from geosongpu_tpu_torch.ops.kernels import columns as kcol
+
+    q, delp = _tracer_array((6, 8, 9), K, 3, 100 * K + n, cuda)
+    before = kcol.fill_q2_zero.launches
+    got = kcol.fill_q2_zero_tracers(q, delp, n)
+    torch.cuda.synchronize()
+    assert kcol.fill_q2_zero.launches == before + 1
+    assert len(got) == n
+    for t, g in enumerate(got):
+        assert g.shape == delp.shape and g.is_contiguous()
+        assert torch.equal(g, kcol.fill_q2_zero(q[..., t].contiguous(),
+                                                delp)), t
+        assert torch.equal(g, kcol.fill_q2_zero_plain(q[..., t], delp)), t
+
+
+def test_fill_tracers_rejects_bad_inputs(cuda):
+    from geosongpu_tpu_torch.ops.kernels import columns as kcol
+
+    q, delp = _tracer_array((2, 3), 8, 3, 7, cuda)
+    fill = kcol.fill_q2_zero_tracers
+    with pytest.raises(TypeError):
+        fill(q.double(), delp, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        fill(q.transpose(-1, -2).contiguous().transpose(-1, -2), delp, 3)
+    with pytest.raises(ValueError):
+        fill(q[..., :-1, :].contiguous(), delp, 3)   # another K
+    with pytest.raises(ValueError):
+        fill(q[..., 0].contiguous(), delp, 1)        # no tracer axis
+    for n in (0, 4, 2.0):
+        with pytest.raises(ValueError):
+            fill(q, delp, n)
+    with pytest.raises(ValueError):
+        fill(q, delp.cpu(), 3)
+
+
 def test_fused_aquaplanet_on_card_matches_cpu(cuda):
     """3 steps at c8-L12 from a moist-perturbed numpy state: on the card
     through the substep kernels, dsw_tracer_acc per tracer, fill_q2_zero
-    (3 per step) and gfdl_microphysics (1 per step); ql and qr relative
-    to max|qv|."""
+    (the three tracers in one launch a step), cup_gf_sh and
+    gfdl_microphysics (1 per step each); ql and qr relative to max|qv|."""
     from geosongpu_tpu_torch.models import aquaplanet
-    from geosongpu_tpu_torch.ops.kernels.columns import fill_q2_zero
+    from geosongpu_tpu_torch.ops.kernels.columns import (cup_gf_sh,
+                                                         fill_q2_zero)
     from geosongpu_tpu_torch.ops.kernels.microphysics import \
         gfdl_microphysics
 
@@ -518,11 +614,11 @@ def test_fused_aquaplanet_on_card_matches_cpu(cuda):
     start["q"][..., 2] = (1e-4 * rng.random(lead)).astype(np.float32)
     a = state_to_numpy(m_cpu.run(state_from_numpy(start, "cpu"), 3))
     kernels = [dsw.dsw_csw1, dsw.dsw_tracer_acc, remap_banded, fill_q2_zero,
-               gfdl_microphysics]
+               cup_gf_sh, gfdl_microphysics]
     before = [k.launches for k in kernels]
     b = state_to_numpy(m_gpu.run(state_from_numpy(start, cuda), 3))
     assert [k.launches - b0 for k, b0 in zip(kernels, before)] \
-        == [3 * n for n in (cfg.n_split, 3 * cfg.q_split, 3, 3, 1)]
+        == [3 * n for n in (cfg.n_split, 3 * cfg.q_split, 3, 1, 1, 1)]
     for f in ("u", "v", "delp", "pt", "ps"):
         scale = float(np.abs(a[f]).max())
         atol = 6e-3 if f in ("u", "v") else 0.0
