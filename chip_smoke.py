@@ -10,16 +10,19 @@ on any failure (and when no CUDA device is present).
 
 runs phases 1 and 2 and then only the per-stage view of the fvtp2d
 callers, dsw_csw1 and dsw_nh_pert (STAGE_KERNELS), of remap_banded at
-the three calls of a c48-L72 and a c192-L72 step, and of gfdl_microphysics
-and of the fill of three tracers (three single-field fills of contiguous
-copies, as the model called them before the multi-tracer form, and that
-form where the tree has it) on the gate's sounding at 13,824 x 32 and
-221,184 x 72 (COLUMN_STAGES): each against its plain version, which it
-must equal (0.0; remap_banded within its gate, so that the view runs on an
-older tree too), its median time and, from a torch.profiler window of 10
-calls, the device time of each __global__ stage it launches and of all
-the call's device work.  Run it from copies of two trees in one call to
-compare their kernels; `--stages columns` runs the column view alone.
+the three calls of a c48-L72 and a c192-L72 step, and of the column
+kernels on the gate's sounding at 128 x 40, 13,824 x 32 and 221,184 x 72
+(COLUMN_STAGES): gfdl_microphysics, the fill of three tracers (three
+single-field fills of contiguous copies, as the model called them before
+the multi-tracer form, and that form where the tree has it) and the five
+pointwise kernels (POINTWISE).  Each against its plain version, which it
+must equal (0.0; remap_banded and the pointwise kernels outside EXACT
+within REL_GATE, so that the view runs on an older tree too), its median
+time and, from a torch.profiler window of 10 calls, the device time of
+each __global__ stage it launches and of all the call's device work; a
+pointwise kernel also with its bound and the device time's share of it.
+Run it from copies of two trees in one call to compare their kernels;
+`--stages columns` runs the column view alone.
 Without arguments, the phases:
 
 1. device: the card's name and power limit (nvidia-smi), the toolchain;
@@ -43,16 +46,17 @@ Without arguments, the phases:
 5. the seven column-physics kernels (gfdl_microphysics, fill_q2_zero,
    aer_activation, moist_rad_coup, cup_gf_sh, buoyancy, evap_subl_pdf)
    against their plain versions, within 1e-5 of max|plain|, and
-   gfdl_microphysics and fill_q2_zero (TILED) equal to them in every
-   element: on the five datasets of the physics gate (128 x 40, seeds
-   1000-1004), at a ragged column count (123 x 16), and at the aquaplanet
+   gfdl_microphysics, fill_q2_zero, cup_gf_sh and aer_activation (EXACT)
+   equal to them in every element: on the five datasets of the physics
+   gate (128 x 40, seeds 1000-1004), at a ragged column count (123 x 16),
+   and at the aquaplanet
    model's 13,824 x 32 - gfdl_microphysics and fill_q2_zero there on the
    inputs the physics chain hands them after 2 steps from a moist-perturbed
    state (cloud and rain present; the fill in its multi-tracer form on the
    state's tracer array, the row the kernels line reports, and in its
    single-field form on each tracer), the five others on the gate's
-   sounding at that shape; gfdl_microphysics and both forms of the fill
-   also at 13,824 x 72 and 221,184 x 72, the column counts of c48-L72 and
+   sounding at that shape; all seven, and the fill in both forms, also at
+   13,824 x 72 and 221,184 x 72, the column counts of c48-L72 and
    c192-L72;
 6. the dual-build gate of the physics kernels as a path of its own, with
    the counts set to 0 before and read after: each primary against its
@@ -145,8 +149,12 @@ KERNELS = {
                       False),
 }
 COLUMN_PHYSICS = list(KERNELS)[8:]
-# the column kernels on tiles of columns: equal to their plain versions
-TILED = ("gfdl_microphysics", "fill_q2_zero")
+# the column kernels that must equal their plain versions in every element
+# (the other three keep REL_GATE)
+EXACT = ("gfdl_microphysics", "fill_q2_zero", "cup_gf_sh", "aer_activation")
+# the pointwise column kernels, in the order --stages columns takes them
+POINTWISE = ("cup_gf_sh", "aer_activation", "evap_subl_pdf", "buoyancy",
+             "moist_rad_coup")
 # Arithmetic of the plain version per output point, each PPM edge counted
 # once per cell (a ppm_flux ~33 operations with the hord-8 limiter, an
 # fvtp2d ~150 per field, a corner interpolation ~15, a column integral ~60
@@ -210,8 +218,9 @@ STAGE_KERNELS = {
 # --stages also takes remap_banded at the step's three calls of these
 # presets' widths (within REL_GATE: the view can run on an older tree)
 REMAP_STAGES = {48: "held_suarez_c48_l72", 192: "held_suarez_c192_l72_fused"}
-# --stages also takes the two tiled column kernels at these (columns, K)
-COLUMN_STAGES = ((6 * 48 * 48, 32), (6 * 192 * 192, 72))
+# --stages also takes the column kernels at these (columns, K): the
+# physics gate's, the aquaplanet model's and c192-L72's column count
+COLUMN_STAGES = ((128, 40), (6 * 48 * 48, 32), (6 * 192 * 192, 72))
 # arguments a wrapper takes and checks but whose values no term reads
 UNREAD = {"aer_activation": (2, 3), "moist_rad_coup": (2,),
           "buoyancy": (2,)}
@@ -435,14 +444,17 @@ def device_times(prof):
     return stats
 
 
-def stage_view(torch, label, kern, plain, card, exact, reps=20):
+def stage_view(torch, label, kern, plain, card, exact, reps=20,
+               bound_of=None):
     """--stages: one kernel call against its plain version (0.0 with
     `exact`, else within REL_GATE), its median time over `reps` calls, and
     the device time per launch of each __global__ it runs and of all its
-    device work per call in a profiler window of 10 calls."""
+    device work per call in a profiler window of 10 calls; with
+    `bound_of(outputs) -> (ms by bytes, ms by operations)`, also the bound
+    and the share of it that the device time reaches."""
     from torch.profiler import ProfilerActivity, profile
 
-    got, want = kern(), plain()
+    got, want = outputs_of(kern()), outputs_of(plain())
     torch.cuda.synchronize()
     if exact:
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
@@ -460,11 +472,17 @@ def stage_view(torch, label, kern, plain, card, exact, reps=20):
               for n, tc in times.items()
               if any(s in n for s in PORT_STAGES)}
     total = sum(t for t, _ in times.values()) / 10 / 1e3
+    share = ""
+    if bound_of is not None:
+        by = bound_of(outputs_of(got))
+        share = (f"; bound {max(by):.4f} ms by "
+                 f"{'bytes' if by[0] >= by[1] else 'operations'}, device at "
+                 f"{100 * max(by) / total:.1f}% of it")
     print(f"[stages] {label}: max abs err {err:.3e}; {ms:.4f} ms (median of "
           f"{reps}); device ms per launch: "
           + ", ".join(f"{k} {t / c / 1e3:.4f} x{c // 10}"
                       for k, (t, c) in stages.items())
-          + f"; all device work {total:.4f} ms per call ({card})")
+          + f"; all device work {total:.4f} ms per call{share} ({card})")
 
 
 def stage_times(torch, dsw, args, names, form, card, reps=20):
@@ -478,17 +496,19 @@ def stage_times(torch, dsw, args, names, form, card, reps=20):
 
 
 def column_stages(torch, gate, kcol, kmic, dev, card):
-    """--stages of gfdl_microphysics and of the fill of three tracers on the
-    gate's sounding at COLUMN_STAGES (0.0 each): the fill as the model
-    called it before its multi-tracer form (a contiguous copy of each
-    tracer slice, one launch each) and, where the tree has it, that form
-    (one launch)."""
+    """--stages of the column kernels on the gate's sounding at
+    COLUMN_STAGES: gfdl_microphysics and the fill of three tracers (0.0
+    each), the fill as the model called it before its multi-tracer form (a
+    contiguous copy of each tracer slice, one launch each) and, where the
+    tree has it, that form (one launch); then the POINTWISE kernels (0.0
+    for those in EXACT, else within REL_GATE), each with its bound over
+    the arrays its formula reads."""
     tracers = getattr(kcol, "fill_q2_zero_tracers", None)
     for ncol, K in COLUMN_STAGES:
         d = {k: torch.as_tensor(v, device=dev)
              for k, v in gate.datasets(1000, (ncol, K)).items()}
         a = gate.arguments("GFDLMicrophysics", d)
-        reps = 20 if ncol == AQUA_COLUMNS else 10
+        reps = 20 if ncol <= AQUA_COLUMNS else 10
         stage_view(torch, f"gfdl_microphysics {(ncol, K)}",
                    lambda: kmic.gfdl_microphysics(*a),
                    lambda: kmic.gfdl_microphysics_plain(*a), card, True,
@@ -505,7 +525,15 @@ def column_stages(torch, gate, kcol, kmic, dev, card):
                        f"{tuple(q.shape)}", lambda: tracers(q, dp, 3),
                        lambda: kcol.fill_q2_zero_tracers_plain(q, dp, 3),
                        card, True, reps)
-        del d, a, q, dp
+        by_wrapper = {gate.WRAPPERS[g].__name__: g for g in gate.KERNELS}
+        for name in POINTWISE:
+            kern, plain, args, reads = column_case(gate, by_wrapper[name], d)
+            stage_view(torch, f"{name} {(ncol, K)}",
+                       lambda: kern(*args), lambda: plain(*args), card,
+                       name in EXACT, reps,
+                       lambda out: bound(name, tensors_of(torch, reads, ()),
+                                         out))
+        del d, a, q, dp, args, reads
         torch.cuda.empty_cache()
 
 
@@ -583,7 +611,7 @@ def check_column_kernel(torch, name, case, label, card, errors, results=None,
                         reps=20, counter=None, points=None):
     """One column kernel against its plain version on `case`, within
     REL_GATE of max|plain| per output, and equal to it in every element for
-    the TILED kernels; errors[name] keeps the largest absolute error seen.
+    the EXACT kernels; errors[name] keeps the largest absolute error seen.
     The call must count one launch on `counter` (default: the wrapper of
     `case`).  With `results`, also the median times and the bound over
     `points` (default: bound's): results[name] = (max_abs_err, ms,
@@ -597,7 +625,7 @@ def check_column_kernel(torch, name, case, label, card, errors, results=None,
         fail(f"{name} {label}: the wrapper counted "
              f"{counter.launches - before} launches for one call")
     err, rel = compare(f"{name} {label}", got, want, False)
-    if name in TILED and err != 0.0:
+    if name in EXACT and err != 0.0:
         fail(f"{name} {label}: {err:.3e} from its plain version, not 0.0")
     errors[name] = max(errors.get(name, 0.0), err)
     shape = tuple(got[0].shape)
@@ -712,14 +740,13 @@ def check_column_physics(torch, np, gate, model, dev, card, results):
         check_column_kernel(torch, name, case, "model shape", card, errors,
                             results)
 
-    # the c48-L72 and c192-L72 column counts, where gfdl_microphysics stops
-    # being bound by its launch
+    # the c48-L72 and c192-L72 column counts, where a kernel's design and
+    # not its launch sets its time
     for ncol in (AQUA_COLUMNS, 16 * AQUA_COLUMNS):
         d = dataset(1000, (ncol, 72))
         for name, case in cases(d).items():
-            if name in TILED:
-                check_column_kernel(torch, name, case, "sounding", card,
-                                    errors, results={}, reps=10)
+            check_column_kernel(torch, name, case, "sounding", card, errors,
+                                results={}, reps=10)
         check_fill_tracers(three_tracers(torch, d), d["delp"],
                            "sounding, 3 tracers", {}, reps=10)
         del d

@@ -13,13 +13,19 @@
 //
 // Design: one thread per point (col, k) over the flat [ncol * K] index, so
 // a warp reads and writes neighbouring addresses; the tail of the last
-// block is masked.  cup_gf_sh reads its two vertical neighbours and
-// recomputes their theta_v (three powf per point instead of a second pass
-// and a scratch array).  What bounds them on this card: bytes.  At
-// 13,824 x 32 each array is 1.8 MB, so 2 + 1, 3 + 4 and 4 + 2 arrays are
-// 1.6 to 3.7 us at 3.35 TB/s against a few transcendentals per point; at
-// that size each call is one launch of 3,456 blocks and its time is the
-// launch.
+// block is masked.  cup_gf_sh needs the theta_v of its two vertical
+// neighbours: a block forms theta_v once for each point of its run and
+// the point on each side of it, in shared memory, and each thread reads
+// its neighbours' from there (one powf a point where recomputing them
+// took three).  Their byte bounds at 3.35 TB/s: 2 + 1, 3 + 4 and 4 + 2
+// arrays of [ncol, K], 1.6 to 3.7 us at 13,824 x 32 (1.8 MB an array),
+// 0.057 to 0.133 ms at 221,184 x 72 (63.7 MB).  moist_rad_coup (one expf
+// a point) is bound by those bytes; aer_activation (a powf, a logf, an
+// erff and two IEEE divisions a point for 12 bytes) and cup_gf_sh (a powf
+// and five IEEE divisions a point) by instruction issue, as the library
+// keeps IEEE arithmetic without contraction to match the plain versions
+// bit for bit.  At 13,824 x 32 each call is one launch of 3,456 blocks
+// and its time is mostly the launch.
 #include "column_common.cuh"
 
 namespace {
@@ -69,31 +75,47 @@ __device__ __forceinline__ float theta_v(float t, float qv, float p,
 // theta_v above by more than 0.1 K, mix t and qv downgradient with weight
 // f_mix and the two layers' delp.  A layer's increment takes the term of
 // the interface below it first, then the one above, as the plain version's
-// two slice updates do.
+// two slice updates do.  A block takes the run of kColThreads points from
+// base; slot r of its shared rows holds the point base - 1 + r, so that
+// slots 0 and kColThreads + 1 hold the neighbours just outside the run,
+// which threads 0 and 1 stage besides their own point.
 __global__ void __launch_bounds__(kColThreads)
 cup_gf_sh_points(long long n, int K, const float* __restrict__ t,
                  const float* __restrict__ qv, const float* __restrict__ p,
                  const float* __restrict__ delp, float f_mix, float c_virt,
                  float kappa, float* __restrict__ t_out,
                  float* __restrict__ qv_out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  constexpr int kRow = kColThreads + 2;
+  __shared__ float s_t[kRow], s_q[kRow], s_dp[kRow], s_th[kRow];
+  const long long base = (long long)blockIdx.x * kColThreads;
+  const auto stage = [&](int r) {
+    const long long e = base - 1 + r;
+    if (e < 0 || e >= n) return;
+    s_t[r] = t[e];
+    s_q[r] = qv[e];
+    s_dp[r] = delp[e];
+    s_th[r] = theta_v(s_t[r], s_q[r], p[e], c_virt, kappa);
+  };
+  stage(threadIdx.x + 1);
+  if (threadIdx.x < 2) stage(threadIdx.x * (kRow - 1));
+  __syncthreads();
+
+  const long long i = base + threadIdx.x;
   if (i >= n) return;
+  const int r = threadIdx.x + 1;
   const int k = (int)(i % K);
-  const float t0 = t[i], q0 = qv[i], dp0 = delp[i];
-  const float th0 = theta_v(t0, q0, p[i], c_virt, kappa);
+  const float t0 = s_t[r], q0 = s_q[r], dp0 = s_dp[r], th0 = s_th[r];
   float dt_acc = 0.0f, dq_acc = 0.0f;
   if (k < K - 1) {   // interface below: layers k (above) and k + 1 (below)
-    const float t1 = t[i + 1], q1 = qv[i + 1], dp1 = delp[i + 1];
-    const float th1 = theta_v(t1, q1, p[i + 1], c_virt, kappa);
-    const float mix = th1 > th0 + 0.1f ? f_mix : 0.0f;
+    const float t1 = s_t[r + 1], q1 = s_q[r + 1], dp1 = s_dp[r + 1];
+    const float mix = s_th[r + 1] > th0 + 0.1f ? f_mix : 0.0f;
     const float wsum = dp0 + dp1;
     dt_acc = dt_acc + mix * (t1 - t0) * dp1 / wsum;
     dq_acc = dq_acc + mix * (q1 - q0) * dp1 / wsum;
   }
   if (k > 0) {       // interface above: layers k - 1 (above) and k (below)
-    const float tm = t[i - 1], qm = qv[i - 1], dpm = delp[i - 1];
-    const float thm = theta_v(tm, qm, p[i - 1], c_virt, kappa);
-    const float mix = th0 > thm + 0.1f ? f_mix : 0.0f;
+    const float tm = s_t[r - 1], qm = s_q[r - 1], dpm = s_dp[r - 1];
+    const float mix = th0 > s_th[r - 1] + 0.1f ? f_mix : 0.0f;
     const float wsum = dpm + dp0;
     dt_acc = dt_acc + (-(mix * (t0 - tm))) * dpm / wsum;
     dq_acc = dq_acc + (-(mix * (q0 - qm))) * dpm / wsum;

@@ -11,7 +11,12 @@ cup_gf_sh `column_kernel_call` with the gate's body, all as the physics
 task runs them off the TPU (interpret=True).
 
 Inputs: the gate's synthetic soundings, two at the gate's 128 x 40 and one
-at a ragged 123 x 16 (a column count no block size divides).  Gates per
+at a ragged 123 x 16 (a column count no block size divides); for cup_gf_sh
+and aer_activation also K 1, 2, 3 and 32 at 1, 3, 255 and 257 columns, so
+that the flat [ncol * K] index of their CUDA kernels mostly ends inside a
+block's run of points and the columns cross the reference's 256-column
+panes (K = 1 is the top level of a two-level sounding: the gate's recipe
+needs two levels).  Gates per
 variable: relative RMS <= 1e-4 (the reference's dual-build gate) and, per
 point relative to max|reference|, 2e-6; GFDLMicrophysics qr, qi, precip
 2e-5 (pow and exp an ulp apart, carried down the sedimentation recurrence;
@@ -41,10 +46,14 @@ POINT_TOL = {("Buoyancy", "b"): 2e-4,
 WRAPPERS = kcolumns.KERNELS + ktwins.KERNELS + (kmicro.gfdl_microphysics,)
 
 
-@pytest.mark.parametrize("seed,ncol,K", CASES)
-@pytest.mark.parametrize("name", NAMES)
-def test_plain_version_matches_pallas_interpret(name, seed, ncol, K):
-    data = gate.datasets(seed, (ncol, K))
+EDGE_KS = [1, 2, 3, 32]
+EDGE_NCOLS = [1, 3, 255, 257]
+
+
+def _matches_pallas_interpret(name, data):
+    """The plain version of `name` on `data` within the point gates of the
+    Pallas kernel in interpret mode; -> (reference, plain) outputs."""
+    ncol, K = data["t"].shape
     want = ref._run_kernel_pallas(name, data)
     before = [w.launches for w in WRAPPERS]
     got = gate.run_kernel_fused(name, data, "cpu")
@@ -56,7 +65,34 @@ def test_plain_version_matches_pallas_interpret(name, seed, ncol, K):
         assert b.shape == ((ncol,) if var == "precip" else (ncol, K)), var
         tol = POINT_TOL.get((name, var), 2e-6)
         assert np.abs(a - b).max() <= tol * np.abs(a).max(), var
+    return want, got
+
+
+@pytest.mark.parametrize("seed,ncol,K", CASES)
+@pytest.mark.parametrize("name", NAMES)
+def test_plain_version_matches_pallas_interpret(name, seed, ncol, K):
+    want, got = _matches_pallas_interpret(
+        name, gate.datasets(seed, (ncol, K)))
     gate.check(want, got)
+
+
+def _top_levels(ncol, K, seed):
+    """The gate's sounding at (ncol, K) for any K >= 1: the top K levels
+    of one with at least two."""
+    d = gate.datasets(seed, (ncol, max(K, 2)))
+    return {k: np.ascontiguousarray(v[:, :K]) for k, v in d.items()}
+
+
+@pytest.mark.parametrize("ncol", EDGE_NCOLS)
+@pytest.mark.parametrize("K", EDGE_KS)
+@pytest.mark.parametrize("name", ["CupGfSh", "AerActivation"])
+def test_plain_version_matches_pallas_interpret_at_edges(name, K, ncol):
+    data = _top_levels(ncol, K, 3000 + 7 * K + ncol)
+    want, got = _matches_pallas_interpret(name, data)
+    if name == "CupGfSh" and K == 32:
+        # not a trivial case: some interface of the sounding mixes
+        assert (got["t"] != data["t"]).any()
+        assert (want["t"] != data["t"]).any()
 
 
 def test_wrappers_are_the_seven_kernels():

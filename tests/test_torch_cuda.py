@@ -2,11 +2,13 @@
 fused substep kernels in every form - hydrostatic, nonhydrostatic, blend -
 and the seven column-physics kernels, gfdl_microphysics and fill_q2_zero in
 every element at the edges of their tiles of columns, fill_q2_zero in its
-multi-tracer form too) against their plain PyTorch versions, their input
-checks, the physics gate on the card, and the port's models on
-the card against the CPU: Held-Suarez eager, fused, nonhydrostatic with
-per-substep tracers and the blend damping form, and the fused aquaplanet
-model.  They skip without CUDA.
+multi-tracer form too, cup_gf_sh and aer_activation in every element
+across their blocks' runs of points and on inputs off a 16-byte boundary)
+against their plain PyTorch versions, their input checks, the physics gate
+on the card, and the port's models on the card against the CPU:
+Held-Suarez eager, fused, nonhydrostatic with per-substep tracers and the
+blend damping form, and the fused aquaplanet model.  They skip without
+CUDA.
 This file imports no jax, so on the card's machine it runs on its own:
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_cuda.py -q
@@ -516,28 +518,87 @@ def _sounding(ncol, K, seed, dev):
             for k, v in d.items()}
 
 
-@pytest.mark.parametrize("ncol", TILE_NCOLS)
-@pytest.mark.parametrize("K", TILE_KS)
-@pytest.mark.parametrize("name", ["GFDLMicrophysics", "FillQ2Zero"])
-def test_column_tile_kernel_equals_plain(cuda, name, K, ncol):
-    """Every output equal to the plain version's in every element, at the
-    tile's edges and at a ragged column count."""
+def _equals_plain(name, args, plain_args=None):
+    """The gate kernel `name` on `args`: one launch, every output equal to
+    the plain version's (on `plain_args`, default `args`) in every
+    element; -> the outputs."""
     import sys
 
     from geosongpu_tpu_torch.physics import standalone_gate as gate
 
     kern = gate.WRAPPERS[name]
     plain = getattr(sys.modules[kern.__module__], kern.__name__ + "_plain")
-    args = gate.arguments(name, _sounding(ncol, K, 2000 + K + ncol, cuda))
     before = kern.launches
     got = _tensors(kern(*args))
     torch.cuda.synchronize()
     assert kern.launches == before + 1
-    want = _tensors(plain(*args))
+    want = _tensors(plain(*(plain_args or args)))
     assert len(got) == len(want)
     for n, (g, w) in enumerate(zip(got, want)):
         assert g.shape == w.shape and bool(g.isfinite().all()), (name, n)
         assert torch.equal(g, w), (name, n, float((g - w).abs().max()))
+    return got
+
+
+@pytest.mark.parametrize("ncol", TILE_NCOLS)
+@pytest.mark.parametrize("K", TILE_KS)
+@pytest.mark.parametrize("name", ["GFDLMicrophysics", "FillQ2Zero"])
+def test_column_tile_kernel_equals_plain(cuda, name, K, ncol):
+    """Every output equal to the plain version's in every element, at the
+    tile's edges and at a ragged column count."""
+    from geosongpu_tpu_torch.physics import standalone_gate as gate
+
+    _equals_plain(name, gate.arguments(
+        name, _sounding(ncol, K, 2000 + K + ncol, cuda)))
+
+
+# ---- cup_gf_sh and aer_activation: runs of points ------------------------
+
+POINT_KS = [1, 2, 3, 31, 32, 33, 72, 129]
+# with the K above: flat sizes below, at and across a block's run of 128
+# points, so that a column crosses the edge of a run
+POINT_NCOLS = [1, 3, 31, 32, 33, 255, 257]
+RUN_KERNELS = ["CupGfSh", "AerActivation"]
+
+
+@pytest.mark.parametrize("ncol", POINT_NCOLS)
+@pytest.mark.parametrize("K", POINT_KS)
+@pytest.mark.parametrize("name", RUN_KERNELS)
+def test_pointwise_kernel_equals_plain(cuda, name, K, ncol):
+    """Every output equal to the plain version's in every element, across
+    cup_gf_sh's runs of points and the neighbour on each side of a run."""
+    from geosongpu_tpu_torch.physics import standalone_gate as gate
+
+    _equals_plain(name, gate.arguments(
+        name, _sounding(ncol, K, 4000 + K + ncol, cuda)))
+
+
+def _off_by_four_bytes(x):
+    """A contiguous copy of x whose data_ptr() is 4 bytes past a 16-byte
+    boundary: the view [1:1 + n] of a fresh flat buffer."""
+    buf = torch.empty(x.numel() + 4, dtype=x.dtype, device=x.device)
+    v = buf[1:1 + x.numel()].view(x.shape)
+    v.copy_(x)
+    return v
+
+
+@pytest.mark.parametrize("ncol,K", [(1, 1), (3, 2), (31, 33), (257, 3),
+                                    (255, 72), (1000, 32), (16385, 129)])
+@pytest.mark.parametrize("name", RUN_KERNELS)
+def test_pointwise_kernel_unaligned_inputs(cuda, name, ncol, K):
+    """Inputs 4 bytes off a 16-byte boundary (contiguous views such as
+    x[1:]): one launch, equal to the plain version and to the aligned call
+    in every element."""
+    from geosongpu_tpu_torch.physics import standalone_gate as gate
+
+    args = gate.arguments(name, _sounding(ncol, K, 5000 + K + ncol, cuda))
+    moved = tuple(_off_by_four_bytes(a) if isinstance(a, torch.Tensor)
+                  else a for a in args)
+    assert all(a.data_ptr() % 16 == 4 for a in moved
+               if isinstance(a, torch.Tensor))
+    got = _equals_plain(name, moved, args)
+    for g, a in zip(got, _tensors(gate.WRAPPERS[name](*args))):
+        assert torch.equal(g, a)
 
 
 def _tracer_array(lead, K, nq, seed, dev):
