@@ -4,8 +4,14 @@
         [--npx N --npz K] --steps S [--device cuda|cpu]
     python -m geosongpu_tpu_torch.cli physics [--kernel NAME|all]
         [--device cuda|cpu]
+    python -m geosongpu_tpu_torch.cli ci EXPERIMENT [ACTION]
+        [--artifact DIR] [--workspace DIR] [--setup_only]
+        [--device cuda|cpu]
 
-`run` steps the preset's model, Held-Suarez or aquaplanet.  `physics` runs
+`run` steps the preset's model, Held-Suarez, aquaplanet or the JW06
+baroclinic wave.  `ci` dispatches an experiment of the port's harness
+(harness/data/experiments.json) to its tasks and exits with an error when
+a task's check fails.  `physics` runs
 the dual-build gate of the standalone physics kernels
 (physics/standalone_gate.py): each primary against its hand-written kernel
 over five datasets, relative RMS <= 1e-4 per variable; it exits with 1 on
@@ -40,12 +46,18 @@ pair its Benchmark action times:
 * `aquaplanet_c48_l32`: both flags off, everything in plain PyTorch but
   the banded remap.
 
+`jw_baroclinic_c48_l26_fused` is the `jw_baroclinic_c48_fused` experiment
+of the harness: the JW06 baroclinic wave at c48-L26, dt 600 s, n_split 6,
+no tracers, with its balancing terrain, through the fused substep
+(dsw_csw1, dsw_csw2, dsw_transport, dsw_wind and remap_banded).
+
 CUDA is required unless `--device cpu` is given.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 import time
 
@@ -65,16 +77,21 @@ PRESETS = {
     "aquaplanet_c48_l32": DycoreConfig(**_AQ32),
     "aquaplanet_c48_l32_fused": DycoreConfig(
         pallas_dycore=True, pallas_microphysics=True, **_AQ32),
+    "jw_baroclinic_c48_l26_fused": DycoreConfig(
+        npx=48, npz=26, dt=600.0, n_split=6, ntracers=0, pallas_dycore=True),
 }
 # preset -> model ("held_suarez" unless named here)
 MODELS = {"aquaplanet_c48_l32": "aquaplanet",
-          "aquaplanet_c48_l32_fused": "aquaplanet"}
+          "aquaplanet_c48_l32_fused": "aquaplanet",
+          "jw_baroclinic_c48_l26_fused": "baroclinic_wave"}
 
 
 def build_model_for(preset: str):
     """build_model(config, device) of the preset's model."""
     if MODELS.get(preset) == "aquaplanet":
         from .models.aquaplanet import build_model
+    elif MODELS.get(preset) == "baroclinic_wave":
+        from .models.baroclinic_wave import build_model
     else:
         from .models.held_suarez import build_model
     return build_model
@@ -100,11 +117,12 @@ def _physics(kernel: str, device) -> int:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="geosongpu-tpu-torch",
-        description="Held-Suarez and aquaplanet models and the physics "
-                    "gate of the PyTorch/CUDA port")
+        description="Held-Suarez, aquaplanet and JW06 models, the CI "
+                    "experiments and the physics gate of the PyTorch/CUDA "
+                    "port")
     sub = p.add_subparsers(dest="cmd", required=True)
-    run = sub.add_parser("run", help="run a preset's model (Held-Suarez or "
-                                     "aquaplanet)")
+    run = sub.add_parser("run", help="run a preset's model (Held-Suarez, "
+                                     "aquaplanet or JW06)")
     run.add_argument("--preset", default="held_suarez_c48_l72",
                      choices=sorted(PRESETS))
     run.add_argument("--npx", type=int, default=None)
@@ -113,7 +131,16 @@ def main(argv=None) -> int:
     phys = sub.add_parser("physics", help="the dual-build gate of the "
                                           "standalone physics kernels")
     phys.add_argument("--kernel", default="all")
-    for sp in (run, phys):
+    ci = sub.add_parser("ci", help="dispatch an experiment of the harness")
+    ci.add_argument("experiment_name")
+    ci.add_argument("experiment_action", nargs="?", default="All",
+                    choices=["All", "Validation", "Benchmark"])
+    ci.add_argument("--artifact", default=".", help="artifact directory")
+    ci.add_argument("--setup_only", action="store_true")
+    ci.add_argument("--workspace", default=None,
+                    help="CI_WORKSPACE (default: that environment variable, "
+                         "else ./.ci_workspace)")
+    for sp in (run, phys, ci):
         sp.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = p.parse_args(argv)
 
@@ -122,6 +149,15 @@ def main(argv=None) -> int:
     if args.device == "cuda" and not torch.cuda.is_available():
         p.error("CUDA is not available; pass --device cpu to run on the CPU")
     device = torch.device(args.device)
+    if args.cmd == "ci":
+        from .harness.task import dispatch
+
+        ws = args.workspace or os.environ.get(
+            "CI_WORKSPACE", os.path.join(os.getcwd(), ".ci_workspace"))
+        dispatch(args.experiment_name, args.experiment_action,
+                 artifact_directory=args.artifact,
+                 setup_only=args.setup_only, workspace=ws, device=args.device)
+        return 0
     if args.cmd == "physics":
         from .physics.standalone_gate import KERNELS
 

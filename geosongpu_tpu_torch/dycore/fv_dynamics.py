@@ -97,8 +97,9 @@ class DycoreContext:
 
 
 def build_context(config: DycoreConfig, grid: Grid, ak: np.ndarray,
-                  bk: np.ndarray, device) -> DycoreContext:
-    """Static data on `device`, for flat terrain.  Raises
+                  bk: np.ndarray, device, phis=None) -> DycoreContext:
+    """Static data on `device`.  phis: the unpadded [6, n, n] surface
+    geopotential (terrain in the PGF of both regimes); None: flat.  Raises
     NotImplementedError for an option the port does not run."""
     check_supported(config)
     if config.pallas_dycore and torch.device(device).type == "cuda":
@@ -109,7 +110,8 @@ def build_context(config: DycoreConfig, grid: Grid, ak: np.ndarray,
             build_chart_tables(config.npx, config.halo), device)
     return DycoreContext(
         ops=build_halo_ops(config.npx, config.halo, device),
-        metrics=padded_metrics(grid, device, chart_cosa=config.chart_corners),
+        metrics=padded_metrics(grid, device, phis=phis,
+                               chart_cosa=config.chart_corners),
         ak=to_torch(ak, device),
         bk=to_torch(bk, device),
         config=config,

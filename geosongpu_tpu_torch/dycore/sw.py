@@ -80,14 +80,19 @@ class PaddedMetrics(NamedTuple):
     div_blend: torch.Tensor
 
 
-def padded_metrics(grid: Grid, device,
+def padded_metrics(grid: Grid, device, phis=None,
                    chart_cosa: bool = False) -> PaddedMetrics:
-    """Flat terrain (phis = 0).  chart_cosa: basis-angle metrics evaluated
-    at the chart gridpoints in the cube-corner regions, as the reference
-    does under chart_corners.  Every array is cast to float32 before any
-    reciprocal is taken."""
+    """phis: the unpadded surface geopotential [6, n, n] (terrain), padded
+    here through the scalar gather table; None: flat.  chart_cosa:
+    basis-angle metrics evaluated at the chart gridpoints in the
+    cube-corner regions, as the reference does under chart_corners.  Every
+    array is cast to float32 before any reciprocal is taken."""
     a = lambda x: to_torch(x, device)[..., None]
     r = lambda x: (1.0 / to_torch(x, device))[..., None]
+    if phis is None:
+        phis_pad = np.zeros(grid.area.shape, np.float32)
+    else:
+        phis_pad = np.asarray(phis, np.float32).reshape(-1)[grid.spec.gidx_x]
     cosa_i, rsina_i = grid.cosa_i, grid.rsina_i
     cosa_j, rsina_j = grid.cosa_j, grid.rsina_j
     cosa_c, rsin2_c = grid.cosa_c, grid.rsin2_c
@@ -136,7 +141,7 @@ def padded_metrics(grid: Grid, device,
         rdx=r(grid.dx), rdy=r(grid.dy), rdxc=r(grid.dxc), rdyc=r(grid.dyc),
         cosa_c=a(cosa_c), rsin2_c=a(rsin2_c),
         cosa_cn=a(cosa_cn), rsin2_cn=a(rsin2_cn),
-        phis=a(np.zeros(grid.area.shape, np.float32)),
+        phis=a(phis_pad),
         dw00=a(corner_dw[0]), dw01=a(corner_dw[1]),
         dw10=a(corner_dw[2]), dw11=a(corner_dw[3]),
         dr11=a(grid.dr11), r12=a(grid.r12), r21=a(grid.r21),

@@ -7,8 +7,10 @@ across their blocks' runs of points and on inputs off a 16-byte boundary)
 against their plain PyTorch versions, their input checks, the physics gate
 on the card, and the port's models on the card against the CPU:
 Held-Suarez eager, fused, nonhydrostatic with per-substep tracers and the
-blend damping form, and the fused aquaplanet model.  They skip without
-CUDA.
+blend damping form, the fused aquaplanet model and the fused JW06 model
+with its terrain.  The synthetic kernel inputs carry a smooth terrain that
+varies by face, row and column, so that dsw_csw2 and dsw_wind add it at
+every column's own index.  They skip without CUDA.
 This file imports no jax, so on the card's machine it runs on its own:
 
     python -m pytest --noconftest -o addopts="" tests/test_torch_cuda.py -q
@@ -181,7 +183,7 @@ def _model_args(model, dev):
         d2_bg=cfg.d2_bg, advect_tracers=not cfg.z_tracer,
         hord_mt=cfg.hord_mt, hord_tm=cfg.hord_tm, chart=ctx.chart,
         stag_tabs=ctx.stag if _use_exchange(cfg) else None, vtx_damp=0.05)
-    if cfg.z_tracer:
+    if cfg.z_tracer and cfg.ntracers:
         qx = ctx.chart.apply_scalar(ctx.ops.fill(st.q[..., 0], "x"), "x")
         args["dsw_tracer_acc"] = (qx, qx, s.pd_x, out.uct_pad, out.vct_pad,
                                   out.mfx_pad, out.mfy_pad, ctx.metrics, dt,
@@ -193,7 +195,9 @@ def _synthetic_args(case, F, Ny, Nx, K, seed, dev):
     """Random, well-conditioned arguments of a kernel check on a face of
     Ny x Nx padded cells (Ny != Nx: every extent is exercised): metrics
     near a unit grid, Courant numbers below 0.5, a blend mask set on about
-    half the corners."""
+    half the corners, and a smooth terrain phis of ~2e4 m2/s2 that differs
+    along faces, rows and columns (a transposed or shifted index of the
+    column stages shows)."""
     name, _, form = case.partition(" ")
     rng = np.random.default_rng(seed)
     u = lambda *shape: rng.uniform(-1.0, 1.0, shape)
@@ -208,7 +212,11 @@ def _synthetic_args(case, F, Ny, Nx, K, seed, dev):
     for f, (sy, sx) in METRIC_STAGGER.items():
         shape = (F, Ny + sy, Nx + sx, 1)
         if f == "phis":
-            mets[f] = np.zeros(shape)
+            ff, jj, ii = np.meshgrid(np.arange(F), np.arange(Ny),
+                                     np.arange(Nx), indexing="ij")
+            mets[f] = (2e4 * (0.5 + np.sin(0.4 * jj + 1.1 * ff)
+                              * np.cos(0.3 * ii - 0.7 * ff) + 0.05 * ii)
+                       )[..., None]
         elif f == "div_blend":
             mets[f] = (rng.random(shape) < 0.5).astype(np.float32)
         elif f in small:
@@ -382,11 +390,15 @@ def test_dsw_wrapper_rejects_bad_inputs(cuda, case):
             kern(*(a[:14] + [a[14][:, :-1].contiguous()]))
 
 
-def _card_vs_cpu(cfg, cuda, fields, per_step):
+def _card_vs_cpu(cfg, cuda, fields, per_step, build=build_model,
+                 noise_floor=False):
     """3 steps at c12-L8 from one numpy state on the card and on the CPU;
-    per_step: launches per step of dsw.KERNELS + remap_banded."""
-    m_cpu = build_model(cfg, "cpu")
-    m_gpu = build_model(cfg, cuda)
+    per_step: launches per step of dsw.KERNELS + remap_banded; build: the
+    model's build_model.  noise_floor: each field's gate also admits twice
+    the CPU's own spread, the 3 steps from the start state with pt one ulp
+    up in a seeded half of the cells."""
+    m_cpu = build(cfg, "cpu")
+    m_gpu = build(cfg, cuda)
     start = state_to_numpy(m_cpu.init(perturb=3.0))
     rng = np.random.default_rng(5)
     start["q"] = (1.0 + 0.2 * rng.random(start["q"].shape)).astype(np.float32)
@@ -396,10 +408,19 @@ def _card_vs_cpu(cfg, cuda, fields, per_step):
     b = state_to_numpy(m_gpu.run(state_from_numpy(start, cuda), 3))
     assert [k.launches - b0 for k, b0 in zip(kernels, before)] \
         == [3 * n for n in per_step]
+    floor = dict.fromkeys(fields, 0.0)
+    if noise_floor:
+        pt = start["pt"].copy()
+        up = np.random.default_rng(0).random(pt.shape) < 0.5
+        pt[up] = np.nextafter(pt[up], np.float32(np.inf))
+        c = state_to_numpy(m_cpu.run(state_from_numpy({**start, "pt": pt},
+                                                      "cpu"), 3))
+        floor = {f: 2.0 * float(np.abs(a[f] - c[f]).max()) for f in fields}
     for f in fields:
         scale = float(np.abs(a[f]).max())
         atol = 6e-3 if f in ("u", "v", "w") else 0.0
-        assert float(np.abs(a[f] - b[f]).max()) <= max(1e-4 * scale, atol), f
+        assert float(np.abs(a[f] - b[f]).max()) \
+            <= max(1e-4 * scale, atol, floor[f]), f
 
 
 def test_fused_model_on_card_matches_cpu(cuda):
@@ -428,6 +449,35 @@ def test_blend_fused_model_on_card_matches_cpu(cuda):
     n = cfg.n_split
     _card_vs_cpu(cfg, cuda, ("u", "v", "delp", "pt", "q", "ps"),
                  [n, n, n, n, cfg.q_split, 0, 0, 3])
+
+
+def test_jw_fused_model_on_card_matches_cpu(cuda):
+    """The JW06 model at c12-L26 with its terrain, perturbed: the four
+    substep kernels and remap_banded (pt alone: no tracers), on the card
+    and on the CPU.  The trajectory's own float32 noise exceeds the wind
+    floor there (one ulp of pt moves u by 5.4e-3 m/s in 3 steps on the
+    CPU), so the gate also admits twice that spread."""
+    from geosongpu_tpu_torch.models import baroclinic_wave
+
+    cfg = DycoreConfig(npx=12, npz=26, dt=1200.0, n_split=2, ntracers=0,
+                       pallas_dycore=True)
+    n = cfg.n_split
+    _card_vs_cpu(cfg, cuda, ("u", "v", "delp", "pt", "ps"),
+                 [n, n, n, n, 0, 0, 0, 3], build=baroclinic_wave.build_model,
+                 noise_floor=True)
+
+
+@pytest.mark.parametrize("name", ["dsw_csw2", "dsw_wind"])
+def test_terrain_kernels_equal_plain_on_jw_state(cuda, name):
+    """dsw_csw2 and dsw_wind on the JW06 model's own inputs (its terrain
+    in the context's metrics): 0.0 from their plain versions."""
+    from geosongpu_tpu_torch.models import baroclinic_wave
+
+    model = baroclinic_wave.build_model(
+        DycoreConfig(npx=12, npz=26, dt=1200.0, n_split=2, ntracers=0,
+                     pallas_dycore=True), cuda)
+    assert float(model.ctx.metrics.phis.abs().max()) > 1e3
+    _equal_to_plain(name, _model_args(model, cuda)[name])
 
 
 # ---- the column-physics kernels --------------------------------------------

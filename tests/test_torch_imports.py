@@ -52,7 +52,10 @@ def test_sources_found():
         "cli.py", "physics/thermo.py", "physics/standalone.py",
         "physics/standalone_gate.py", "models/aquaplanet.py",
         "ops/kernels/columns.py", "ops/kernels/microphysics.py",
-        "ops/kernels/standalone_twins.py")} | {"chip_smoke.py"} <= names
+        "ops/kernels/standalone_twins.py", "models/baroclinic_wave.py",
+        "harness/exceptions.py", "harness/progress.py",
+        "harness/registry.py", "harness/environment.py", "harness/task.py",
+        "harness/tasks/baroclinic.py")} | {"chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -194,7 +197,8 @@ def test_main_path_config_is_supported():
                                "held_suarez_c192_l72_fused",
                                "held_suarez_c48_l72",
                                "held_suarez_c48_l72_fused",
-                               "held_suarez_c48_l72_nh_fused"]
+                               "held_suarez_c48_l72_nh_fused",
+                               "jw_baroclinic_c48_l26_fused"]
     for cfg in PRESETS.values():
         assert type(cfg) is DycoreConfig
         check_supported(cfg)
