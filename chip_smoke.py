@@ -87,7 +87,26 @@ Without arguments, the phases:
    with every launch count set to 0 just before and read just after
    (exact over the 2,016 steps), the task's four gates (steady max|ps - 1e5| <= 1,500 Pa, day-4
    ps_min >= 98,600 Pa, day-9 ps_min in [90,000, 99,000] Pa, the deepest
-   low at 20-80 N), its results printed beside the reference's calibration.
+   low at 20-80 N), its results printed beside the reference's calibration;
+11. the CI pipelines through the port's dispatch, each in a temporary
+   directory, with the tasks' own checks: the Benchmark action of
+   held_suarez_c48 (c48-L32, 24 steps) and aquaplanet_c48 (c48-L32, 16
+   steps), every count set to 0 just before each dispatch and read just
+   after: each member's record carries its own launches (its steps and
+   its phase tree), which must equal exactly what its configuration
+   gives (run_launches: the fused member every kernel of its path - for
+   the aquaplanet also dsw_tracer_acc, fill_q2_zero, cup_gf_sh and
+   gfdl_microphysics - the eager member only remap_banded), a step's
+   share equal to its preset's in PATHS, and the members' launches add up
+   to the dispatch's; each record's median ms/step, gridpoints/s and top
+   five phase-tree leaves printed with the card line, and the fused
+   member's speed-up over the eager one; the Validation of
+   held_suarez_c192 (eager c192-L72, 8 steps) on the one card under the
+   same launch rule, its mesh description printed; the Validation of
+   hs_climatology_smoke (eager c12-L16, 720 steps from the committed
+   spun-up state) on the card, its HS94 gates, remap_banded three times a
+   step; and physics_standalone_all, each of the seven column kernels
+   launched exactly once a dataset.
 
 Phases 3 to 5 print the median time of 20 calls (10 at c192), kernel and
 plain.  The second-to-last line is the kernels JSON object, the last line
@@ -274,13 +293,24 @@ PATHS = {
         "dsw_csw1": 6, "dsw_csw2": 6, "dsw_transport": 6, "dsw_wind": 6,
         "remap_banded": 3}),
 }
-# the last phase: the JW06 validation through the port's dispatch, and the
+# phase 10: the JW06 validation through the port's dispatch, and the
 # reference's own calibration at c48-L26 (tests/test_baroclinic_wave.py:
 # steady 4-day max |ps - 1e5| and ps_min by day), printed beside it
 JW_EXPERIMENT = "jw_baroclinic_c48_fused"
 JW_PRESET = "jw_baroclinic_c48_l26_fused"
 JW_REFERENCE = {"steady": 310.0, "ps_min": {4: 99689.0, 6: 99321.0,
                                             9: 96768.0, 10: 94900.0}}
+# phase 11, the CI pipelines through the port's dispatch: Benchmark
+# experiment -> (the task's env key, the presets in PATHS whose per-step
+# launches its eager and its fused member share: the same splits, tracers
+# and kernels at another depth)
+CI_BENCHMARKS = {
+    "held_suarez_c48": ("hs", "held_suarez_c48_l72", "held_suarez_c48_l72_fused"),
+    "aquaplanet_c48": ("aq", "aquaplanet_c48_l32", "aquaplanet_c48_l32_fused"),
+}
+CI_VALIDATION = "held_suarez_c192"   # eager c192-L72 on the one card
+CI_STANDALONE = "physics_standalone_all"
+CI_CLIMATOLOGY = "hs_climatology_smoke"   # eager c12-L16, 4 + 6 days
 
 
 def fail(msg: str) -> None:
@@ -1093,6 +1123,165 @@ def run_jw_validation(torch, counters, card):
               for d, m in enumerate(mins, 1)))
 
 
+def run_launches(dyc, steps, warmup, tree):
+    """The exact launches of one run of the HeldSuarez task (the Aquaplanet
+    task's too) of a hydrostatic model under `dyc`.  A step: the banded
+    remap's three calls a remap interval; under pallas_dycore each of the
+    four substep kernels once a substep and dsw_tracer_acc once a tracer
+    and tracer subcycle a remap interval; under pallas_microphysics the
+    three physics kernels once.  The run: max(1, warmup) + steps steps and,
+    with a tree, its leaves, each called TREE_CALLS times: the step leaf a
+    step, the substep leaf one launch of each substep kernel, the tracer
+    and the remap leaf a remap interval's, the forcing leaf the physics."""
+    from geosongpu_tpu_torch.benchmark.phases import REPS
+    from geosongpu_tpu_torch.harness.tasks.held_suarez import PHASE_INNER
+
+    if not dyc.hydrostatic:
+        fail("run_launches counts hydrostatic runs only")
+    per_step, per_leaf = {}, {}
+    if dyc.remap_band > 0:
+        per_step["remap_banded"] = 3 * dyc.k_split
+        per_leaf["remap_banded"] = 3
+    if dyc.pallas_dycore:
+        for k in ("dsw_csw1", "dsw_csw2", "dsw_transport", "dsw_wind"):
+            per_step[k] = dyc.k_split * dyc.n_split
+            per_leaf[k] = 1
+        if dyc.z_tracer and dyc.ntracers:
+            per_leaf["dsw_tracer_acc"] = dyc.ntracers * dyc.q_split
+            per_step["dsw_tracer_acc"] = dyc.k_split * per_leaf[
+                "dsw_tracer_acc"]
+    if dyc.pallas_microphysics:
+        for k in ("fill_q2_zero", "cup_gf_sh", "gfdl_microphysics"):
+            per_step[k] = per_leaf[k] = 1
+    tree_calls = 1 + REPS * PHASE_INNER if tree else 0
+    want = {k: n * (max(1, warmup) + steps + tree_calls)
+            + per_leaf[k] * tree_calls for k, n in per_step.items()}
+    return per_step, want
+
+
+def check_launches(label, got, want):
+    """Exactly the launches `want` (name: count), no other kernel."""
+    wrong = {k: (got.get(k, 0), want.get(k, 0)) for k in set(got) | set(want)
+             if got.get(k, 0) != want.get(k, 0)}
+    if wrong:
+        fail(f"{label}: launches (got, expected) {wrong}")
+
+
+def print_record(label, rec, card):
+    tree = rec.phase_tree or {}
+    top = sorted(tree.get("phases_ms", {}).items(), key=lambda kv: -kv[1])[:5]
+    print(f"[ci] {label} [{rec.backend}] c{rec.grid['npx']}-L"
+          f"{rec.grid['npz']}: median {rec.median_step_s * 1e3:.2f} ms/step, "
+          f"{rec.grid_points_per_s:.4e} gridpoints/s over "
+          f"{len(rec.step_time_s)} steps (warm-up {rec.compile_time_s:.2f} s;"
+          f" mesh: {rec.extra['mesh']}); launches "
+          + ", ".join(f"{k} {v}" for k, v in rec.extra["launches"].items())
+          + (f"; phase tree: step {tree['full_step_ms']:.2f} ms, top leaves "
+             + ", ".join(f"{k} {v:.2f} ms" for k, v in top)
+             + f", unaccounted {tree['unaccounted_ms']:.2f} ms"
+             if tree else "") + f" ({card})")
+
+
+def run_ci_pipelines(torch, counters, card):
+    """Phase 11: the CI pipelines through the port's dispatch, each in a
+    temporary directory, a failed check failing the script.  Every count
+    is set to 0 just before each dispatch and read just after; each
+    record's own launches (the task's count over its run) must be exactly
+    run_launches' for its configuration, its step's share equal to its
+    preset's in PATHS, and the records' launches must add up to the
+    dispatch's.  Then the c192 Validation on the one card, the smoke
+    climatology on the card (the banded remap three times a step), and the
+    seven standalone tasks, each column kernel launched exactly once a
+    dataset."""
+    import tempfile
+
+    from geosongpu_tpu_torch.benchmark.timing import compare
+    from geosongpu_tpu_torch.harness.exceptions import CICheckException
+    from geosongpu_tpu_torch.harness.task import dispatch, get_config
+    from geosongpu_tpu_torch.physics.standalone_gate import N_DATASETS
+
+    def run(exp, action):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as td:
+            try:
+                env = dispatch(exp, action, artifact_directory=f"{td}/art",
+                               workspace=f"{td}/ws", device="cuda")
+            except CICheckException as e:
+                fail(f"{exp} {action}: the task's check failed: {e}")
+        torch.cuda.synchronize()
+        return env, time.perf_counter() - t0, {
+            k: fn.launches for k, fn in counters.items() if fn.launches}
+
+    def check_records(exp, env, key, presets, tree):
+        records = env.get(f"{key}.records")
+        cfg = env.config
+        configs = [cfg.dycore] if not tree else [
+            cfg.dycore, dataclasses.replace(
+                cfg.dycore, pallas_dycore=True,
+                pallas_microphysics=cfg.model == "aquaplanet")]
+        total = {}
+        for rec, dyc, preset in zip(records, configs, presets):
+            per_step, want = run_launches(dyc, cfg.run.steps,
+                                          cfg.run.warmup_steps, tree)
+            if per_step != PATHS[preset][2]:
+                fail(f"{exp} [{rec.backend}]: a step's launches {per_step} "
+                     f"are not {preset}'s {PATHS[preset][2]}")
+            check_launches(f"{exp} [{rec.backend}]", rec.extra["launches"],
+                           want)
+            for k, n in rec.extra["launches"].items():
+                total[k] = total.get(k, 0) + n
+            print_record(exp, rec, card)
+        return records, total
+
+    for exp, (key, eager, fused) in CI_BENCHMARKS.items():
+        env, sec, got = run(exp, "Benchmark")
+        records, total = check_records(exp, env, key, (eager, fused), True)
+        del env
+        check_launches(f"{exp} Benchmark (the dispatch)", got, total)
+        print(f"[ci] {exp} Benchmark through dispatch in {sec:.1f} s: "
+              f"fused over eager x"
+              f"{compare(*records)['speedup_median_step']:.3f} in the "
+              f"median step ({card})")
+        torch.cuda.empty_cache()
+
+    env, sec, got = run(CI_VALIDATION, "Validation")
+    (rec,), total = check_records(CI_VALIDATION, env, "hs",
+                                  ("held_suarez_c48_l72",), False)
+    del env
+    check_launches(f"{CI_VALIDATION} Validation (the dispatch)", got, total)
+    if not rec.extra["mesh"].startswith("single-device"):
+        fail(f"{CI_VALIDATION}: mesh {rec.extra['mesh']!r}")
+    print(f"[ci] {CI_VALIDATION} Validation through dispatch in {sec:.1f} s, "
+          f"its checks passed ({card})")
+    torch.cuda.empty_cache()
+
+    env, sec, got = run(CI_CLIMATOLOGY, "Validation")
+    cfg, raw = env.config, get_config(CI_CLIMATOLOGY)
+    per_day = max(1, int(86400.0 / cfg.dycore.dt))
+    every = max(1, per_day // 4)
+    steps = (int(raw["spinup_days"] * per_day)
+             + -(-int(raw["avg_days"] * per_day) // every) * every)
+    check_launches(f"{CI_CLIMATOLOGY} Validation", got,
+                   {"remap_banded": 3 * cfg.dycore.k_split * steps})
+    if env.get("clim.device") != "cuda":
+        fail(f"{CI_CLIMATOLOGY}: ran on {env.get('clim.device')}")
+    ubar = env.get("clim.ubar")
+    print(f"[ci] {CI_CLIMATOLOGY} Validation through dispatch on "
+          f"{env.get('clim.device')} in {sec:.1f} s ({steps} steps of "
+          f"c{cfg.dycore.npx}-L{cfg.dycore.npz}, {1e3 * sec / steps:.2f} "
+          f"ms/step with the set-up), its HS94 gates passed, max zonal-mean"
+          f" u {ubar.max():.2f} m/s ({card})")
+    del env
+
+    _, sec, got = run(CI_STANDALONE, "All")
+    check_launches(CI_STANDALONE, got, {k: N_DATASETS for k in COLUMN_PHYSICS})
+    print(f"[ci] {CI_STANDALONE} through dispatch in {sec:.1f} s: the seven "
+          f"tasks' checks passed, each column kernel launched {N_DATASETS} "
+          f"times ({card})")
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1278,6 +1467,9 @@ def main() -> int:
     # ---- 10. the JW06 validation through the port's dispatch --------------
     check_jw_steady_day(torch, dev, card)
     run_jw_validation(torch, counters, card)
+
+    # ---- 11. the CI pipelines through the port's dispatch ---------------
+    run_ci_pipelines(torch, counters, card)
 
     # each entry: (key of results, kernel, path whose launches it reports)
     entries = [(k, k, "fused") for k in list(KERNELS)[:6]] + [

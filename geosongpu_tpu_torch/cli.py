@@ -11,7 +11,24 @@
 `run` steps the preset's model, Held-Suarez, aquaplanet or the JW06
 baroclinic wave.  `ci` dispatches an experiment of the port's harness
 (harness/data/experiments.json) to its tasks and exits with an error when
-a task's check fails.  `physics` runs
+a task's check fails.  The experiments are the reference's:
+
+* `held_suarez_c12`, `_c24`, `_c48`, `_c192` and `_c16_sharded` (the
+  HeldSuarez task; a declared mesh larger than the host runs on one
+  device), `aquaplanet_c24` and `aquaplanet_c48` (Aquaplanet): Validation
+  gates one run; Benchmark times the eager substep against the fused
+  kernels, each with its measured phase tree, and writes the records and
+  `report_benchmark.out` to the artifact directory;
+  `held_suarez_bench_smoke` and `aquaplanet_bench_smoke` are the same at
+  c8-L6, seconds on the CPU;
+* `hs_climatology`, `_smoke` and `_full` (HSClimatology, the Held-Suarez
+  1994 circulation gates; the first two run on the CPU as their entry's
+  `backend` says);
+* `physics_standalone_<kernel>` and `physics_standalone_all` (the seven
+  standalone physics tasks, the gate below as pipeline tasks);
+* `jw_baroclinic_c48`, `_c48_fused` and `_smoke` (BaroclinicWave).
+
+`physics` runs
 the dual-build gate of the standalone physics kernels
 (physics/standalone_gate.py): each primary against its hand-written kernel
 over five datasets, relative RMS <= 1e-4 per variable; it exits with 1 on
@@ -146,6 +163,8 @@ def main(argv=None) -> int:
 
     import torch
 
+    from .device import synchronize
+
     if args.device == "cuda" and not torch.cuda.is_available():
         p.error("CUDA is not available; pass --device cpu to run on the CPU")
     device = torch.device(args.device)
@@ -170,17 +189,16 @@ def main(argv=None) -> int:
         cfg = dataclasses.replace(cfg, npx=args.npx)
     if args.npz is not None:
         cfg = dataclasses.replace(cfg, npz=args.npz)
-    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
 
     model = build_model_for(args.preset)(cfg, device)
     state = model.init(perturb=1e-3)
     t0 = time.perf_counter()
     state = model.step(state)   # warm-up: kernel build, allocator
-    sync()
+    synchronize(device)
     print(f"first step: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     state = model.run(state, args.steps)
-    sync()
+    synchronize(device)
     dt = time.perf_counter() - t0
     where = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"

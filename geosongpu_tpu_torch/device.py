@@ -33,3 +33,10 @@ def to_torch(a, device) -> torch.Tensor:
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
+
+
+def synchronize(device) -> None:
+    """Wait for the work queued on `device` (a card); nothing on the CPU,
+    whose work is done when the call returns."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)

@@ -163,9 +163,18 @@ def test_jw_experiments_equal_the_reference_table():
     ref = yaml.safe_load(
         (ROOT / "geosongpu_tpu/harness/data/experiments.yaml").read_text())
     table = t_task.load_experiments()
-    assert sorted(table) == ["jw_baroclinic_c48", "jw_baroclinic_c48_fused",
-                             "jw_baroclinic_smoke"]
-    for name in ("jw_baroclinic_c48", "jw_baroclinic_smoke"):
+    # the JW06 entries and those of the HeldSuarez, Aquaplanet,
+    # HSClimatology and physics standalone tasks
+    tasks = {"HeldSuarez", "Aquaplanet", "HSClimatology", "FillQ2Zero",
+             "Buoyancy", "EvapSublPdfLoop", "AerActivation",
+             "GFDLMicrophysics", "MoistRadCoup", "CupGfSh"}
+    ported = sorted(name for name, raw in ref.items()
+                    if set(raw.get("tasks", [])) & tasks)
+    assert len(ported) == 20
+    assert sorted(table) == sorted(["jw_baroclinic_c48",
+                                    "jw_baroclinic_c48_fused",
+                                    "jw_baroclinic_smoke"] + ported)
+    for name in ["jw_baroclinic_c48", "jw_baroclinic_smoke"] + ported:
         assert table[name] == ref[name], name
     fused = json.loads(json.dumps(ref["jw_baroclinic_c48"]))
     fused["experiment"]["dycore"]["pallas_dycore"] = True
