@@ -25,7 +25,10 @@ Run it from copies of two trees in one call to compare their kernels;
 `--stages columns` runs the column view alone.
 Without arguments, the phases:
 
-1. device: the card's name and power limit (nvidia-smi), the toolchain;
+1. device: the card's name and power limit (nvidia-smi), the toolchain,
+   NVML's software version and power limit (which must equal
+   nvidia-smi's), and the idle power before any work is queued (10 NVML
+   samples at 0.2 s), which phase 11 compares against;
 2. build: the one kernel library from the checkout's csrc/ sources, with
    ptxas registers and spills per kernel;
 3. remap_banded against its plain PyTorch version at the three c48-L72
@@ -106,7 +109,25 @@ Without arguments, the phases:
    hs_climatology_smoke (eager c12-L16, 720 steps from the committed
    spun-up state) on the card, its HS94 gates, remap_banded three times a
    step; and physics_standalone_all, each of the seven column kernels
-   launched exactly once a dataset.
+   launched exactly once a dataset.  The two Benchmark pairs and the c192
+   Validation run with HARDWARE_SAMPLING=1 (set around those dispatches
+   only): every record carries energy, the card's energy counter rose over
+   each timed window at a mean power of at most 1.05 x the power limit,
+   and the device-bound c192 Validation's mean power exceeds phase 1's
+   idle power; each record prints its J, J/step and mean W from the
+   counter beside the sampled power's trapezoid, and each pair its
+   eager/fused energy ratio;
+12. the hardware sampler and the trace reader on the card: NVML's
+   utilization and power over 10 idle samples, 3 s of chained matmuls
+   (a load) and 10 idle samples, higher under the load than in either
+   idle stretch; the hws server as a subprocess (`hws.cli server --device
+   cuda`) answering the client's start, tick, dump and stop, its dump
+   loaded by the port's load_data; the Chrome trace of 2 fused c48-L72
+   steps through benchmark.profiler.trace, whose device-interval union
+   (hws.xprof_util.device_busy) equals the profiler's device-event total
+   within 2%; and the device-bound fused c192-L72 preset's median step
+   with the sampler (a sample after each step) within 2% of its median
+   without.
 
 Phases 3 to 5 print the median time of 20 calls (10 at c192), kernel and
 plain.  The second-to-last line is the kernels JSON object, the last line
@@ -130,9 +151,11 @@ PyTorch call computes any of these stencil and column functions - the
 column physics are chains of tens of elementwise operations with a
 recurrence down the column - so library_ms is null throughout.
 """
+import contextlib
 import dataclasses
 import importlib.util
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1182,14 +1205,50 @@ def print_record(label, rec, card):
              if tree else "") + f" ({card})")
 
 
-def run_ci_pipelines(torch, counters, card):
+def check_energy(exp, rec, limit_w, card):
+    """A sampled record (HARDWARE_SAMPLING=1): it carries energy, the card's
+    counter rose over the timed window, and the window's mean power is at
+    most 1.05 x the power limit.  Prints the counter's energy beside the
+    trapezoid of the sampled power over the samples' own span (NVML's
+    running average lags the load) and the counter over that
+    span."""
+    from geosongpu_tpu_torch.hws.analysis import load_data
+
+    if not rec.energy:
+        fail(f"{exp} [{rec.backend}]: no energy in the sampled record")
+    x = rec.extra
+    j, w = x["gpu_energy_j_counter"], x["mean_gpu_power_w"]
+    if not j > 0:
+        fail(f"{exp} [{rec.backend}]: the energy counter read {j} J over "
+             f"{x['window_s']:.3f} s")
+    if not w <= 1.05 * limit_w:
+        fail(f"{exp} [{rec.backend}]: mean power {w:.2f} W over 1.05 x the "
+             f"{limit_w:.2f} W limit")
+    d = load_data(x["hws_dump"])
+    span_j = (int(d["energy_mj"][-1]) - int(d["energy_mj"][0])) / 1e3
+    samples = x["gpu_energy_j_samples"]
+    print(f"[energy] {exp} [{rec.backend}]: {j:.2f} J over "
+          f"{x['window_s']:.3f} s of {len(rec.step_time_s)} steps, "
+          f"{x['j_per_step']:.3f} J/step, mean {w:.2f} W (the counter; "
+          f"tpu_kwh {rec.energy['tpu_kwh']:.4e}); over the samples' span "
+          f"{float(d['t_s'][-1]):.3f} s the counter {span_j:.2f} J, the "
+          f"sampled power's trapezoid {samples:.2f} J"
+          + (f" ({(samples / span_j - 1) * 100:+.1f}%)" if span_j > 0 else "")
+          + f"; host model {rec.energy['cpu_kwh'] * 3.6e6:.2f} J ({card})")
+    return w
+
+
+def run_ci_pipelines(torch, counters, card, limit_w, idle_w):
     """Phase 11: the CI pipelines through the port's dispatch, each in a
     temporary directory, a failed check failing the script.  Every count
     is set to 0 just before each dispatch and read just after; each
     record's own launches (the task's count over its run) must be exactly
     run_launches' for its configuration, its step's share equal to its
     preset's in PATHS, and the records' launches must add up to the
-    dispatch's.  Then the c192 Validation on the one card, the smoke
+    dispatch's.  The Benchmark pairs and the c192 Validation run with
+    HARDWARE_SAMPLING=1 (set around those calls only): each record's
+    energy passes check_energy, and the c192 Validation's mean power
+    (device-bound) exceeds the idle power of phase 1.  Then the smoke
     climatology on the card (the banded remap three times a step), and the
     seven standalone tasks, each column kernel launched exactly once a
     dataset."""
@@ -1200,16 +1259,28 @@ def run_ci_pipelines(torch, counters, card):
     from geosongpu_tpu_torch.harness.task import dispatch, get_config
     from geosongpu_tpu_torch.physics.standalone_gate import N_DATASETS
 
-    def run(exp, action):
+    def run(exp, action, sampled_key=None):
+        """sampled_key: the task's env key; its records are sampled and
+        their energy checked while the dumps exist."""
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory() as td:
-            try:
-                env = dispatch(exp, action, artifact_directory=f"{td}/art",
-                               workspace=f"{td}/ws", device="cuda")
-            except CICheckException as e:
-                fail(f"{exp} {action}: the task's check failed: {e}")
+        if sampled_key:
+            os.environ["HARDWARE_SAMPLING"] = "1"
+        try:
+            with tempfile.TemporaryDirectory() as td:
+                try:
+                    env = dispatch(exp, action,
+                                   artifact_directory=f"{td}/art",
+                                   workspace=f"{td}/ws", device="cuda")
+                except CICheckException as e:
+                    fail(f"{exp} {action}: the task's check failed: {e}")
+                if sampled_key:
+                    env.set("hws.mean_w", [
+                        check_energy(exp, rec, limit_w, card)
+                        for rec in env.get(f"{sampled_key}.records")])
+        finally:
+            os.environ.pop("HARDWARE_SAMPLING", None)
         torch.cuda.synchronize()
         return env, time.perf_counter() - t0, {
             k: fn.launches for k, fn in counters.items() if fn.launches}
@@ -1236,25 +1307,34 @@ def run_ci_pipelines(torch, counters, card):
         return records, total
 
     for exp, (key, eager, fused) in CI_BENCHMARKS.items():
-        env, sec, got = run(exp, "Benchmark")
+        env, sec, got = run(exp, "Benchmark", key)
         records, total = check_records(exp, env, key, (eager, fused), True)
         del env
         check_launches(f"{exp} Benchmark (the dispatch)", got, total)
+        c = compare(*records)
+        j = [r.extra["gpu_energy_j_counter"] for r in records]
         print(f"[ci] {exp} Benchmark through dispatch in {sec:.1f} s: "
-              f"fused over eager x"
-              f"{compare(*records)['speedup_median_step']:.3f} in the "
-              f"median step ({card})")
+              f"fused over eager x{c['speedup_median_step']:.3f} in the "
+              f"median step; energy eager over fused x"
+              f"{c['energy_ratio']:.3f} (compare: card and host model), "
+              f"card alone x{j[0] / j[1]:.3f} ({j[0]:.2f} J / {j[1]:.2f} J; "
+              f"{card})")
         torch.cuda.empty_cache()
 
-    env, sec, got = run(CI_VALIDATION, "Validation")
+    env, sec, got = run(CI_VALIDATION, "Validation", "hs")
     (rec,), total = check_records(CI_VALIDATION, env, "hs",
                                   ("held_suarez_c48_l72",), False)
+    (mean_w,) = env.get("hws.mean_w")
     del env
     check_launches(f"{CI_VALIDATION} Validation (the dispatch)", got, total)
     if not rec.extra["mesh"].startswith("single-device"):
         fail(f"{CI_VALIDATION}: mesh {rec.extra['mesh']!r}")
+    if not mean_w > idle_w:
+        fail(f"{CI_VALIDATION}: mean power {mean_w:.2f} W over its steps is "
+             f"not above the idle {idle_w:.2f} W")
     print(f"[ci] {CI_VALIDATION} Validation through dispatch in {sec:.1f} s, "
-          f"its checks passed ({card})")
+          f"its checks passed; mean power {mean_w:.2f} W against "
+          f"{idle_w:.2f} W idle ({card})")
     torch.cuda.empty_cache()
 
     env, sec, got = run(CI_CLIMATOLOGY, "Validation")
@@ -1282,6 +1362,188 @@ def run_ci_pipelines(torch, counters, card):
           f"times ({card})")
 
 
+def sample_idle(sampler, n=10):
+    """n samples rate_s apart with nothing queued on the card; their mean
+    power (W) and busy share."""
+    k = len(sampler.data["tpu_psu"])
+    for _ in range(n):
+        sampler.sample_once()
+        time.sleep(sampler.rate_s)
+    return (statistics.fmean(sampler.data["tpu_psu"][k:]),
+            statistics.fmean(sampler.data["tpu_busy"][k:]))
+
+
+def counter_steps(gpu, seconds=1.0):
+    """The energy counter polled every millisecond for `seconds`: how
+    often its value changes (the median interval between changes, s) and
+    how many times."""
+    changes, last = [], gpu.energy_mj()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        e = gpu.energy_mj()
+        if e != last:
+            changes.append(time.perf_counter())
+            last = e
+        time.sleep(0.001)
+    gaps = [b - a for a, b in zip(changes, changes[1:])]
+    return (statistics.median(gaps) if gaps else float("nan")), len(changes)
+
+
+def check_idle_and_busy(torch, dev, card):
+    """Phase 12.1: how often the energy counter steps (1 s of polling),
+    then 10 idle samples at 0.2 s, 3 s of chained float32 matmuls (a load,
+    not a kernel under test) with a sample every 0.2 s between its
+    synchronised batches, 10 idle samples: the NVML utilization and power
+    under load exceed both idle stretches'.  Also prints the host's CPU
+    utilization under the load, as the sampler reads it from /proc/stat."""
+    from geosongpu_tpu_torch.hws.server import Sampler
+
+    with contextlib.closing(Sampler(rate_s=0.2, device=dev)) as sampler:
+        step_s, n_steps = counter_steps(sampler.gpu)
+        print(f"[hws] the energy counter changed {n_steps} times in 1 s of "
+              f"polling, a median {step_s:.4f} s apart ({card})")
+        before = sample_idle(sampler)
+        k = len(sampler.data["tpu_psu"])
+        a = torch.randn(8192, 8192, device=dev)
+        t0 = last = time.perf_counter()
+        while time.perf_counter() - t0 < 3.0:
+            for _ in range(4):
+                a = torch.tanh(a @ a)
+            torch.cuda.synchronize()
+            if time.perf_counter() - last >= sampler.rate_s:
+                sampler.sample_once()
+                last = time.perf_counter()
+        load = (statistics.fmean(sampler.data["tpu_psu"][k:]),
+                statistics.fmean(sampler.data["tpu_busy"][k:]))
+        n_load = len(sampler.data["tpu_psu"]) - k
+        host = statistics.fmean(sampler.data["cpu_exe_utl"][k:])
+        del a
+        after = sample_idle(sampler)
+    print(f"[hws] idle {before[0]:.2f} W busy {before[1]:.3f}; under load "
+          f"{load[0]:.2f} W busy {load[1]:.3f} ({n_load} samples over 3 s, "
+          f"NVML's averaged power lags); idle after {after[0]:.2f} W "
+          f"busy {after[1]:.3f} (NVML, 0.2 s apart; {card}); the host's "
+          f"CPU under the load {host:.2f}% busy (/proc/stat)")
+    for i, what in enumerate(("power", "busy")):
+        if not load[i] > max(before[i], after[i]):
+            fail(f"hws: {what} under load {load[i]} is not above idle "
+                 f"{before[i]} / {after[i]}")
+
+
+def check_server(card, name):
+    """Phase 12.2: the hws server as a subprocess on the card, the client's
+    start, tick, dump and stop; the dump loads with the port's load_data.
+    The socket directory is a relative path under the working directory,
+    which keeps the socket's path far below the 108 bytes of a unix
+    socket address."""
+    import shutil
+    import tempfile
+
+    from geosongpu_tpu_torch.hws import constants
+    from geosongpu_tpu_torch.hws.analysis import load_data
+    from geosongpu_tpu_torch.hws.client import client_main
+
+    sock = os.path.relpath(tempfile.mkdtemp(prefix=".hws_", dir="."))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "geosongpu_tpu_torch.hws.cli", "server",
+         "--device", "cuda", "--socket_dir", sock, "--dump_dir", sock,
+         "--rate", "0.1"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        t0 = time.perf_counter()
+        while not os.path.exists(constants.socket_path(sock)):
+            if proc.poll() is not None or time.perf_counter() - t0 > 120:
+                proc.kill()
+                fail(f"hws server did not start: {proc.communicate()}")
+            time.sleep(0.1)
+        replies = [client_main("start", sock)]
+        time.sleep(1.0)
+        replies.append(client_main("tick", sock))
+        time.sleep(0.5)
+        replies += [client_main("dump", sock), client_main("stop", sock)]
+        out, err = proc.communicate(timeout=60)
+        if proc.returncode != 0 or any(r.get("status") != "ok"
+                                       for r in replies):
+            fail(f"hws server: rc {proc.returncode}, replies {replies}, "
+                 f"{err[-2000:]}")
+        d = load_data(replies[2]["path"])
+        n = len(d["t_s"])
+        if n < 1 or str(d["device"]) != "cuda" or str(d["gpu_name"]) != name:
+            fail(f"hws server's dump: {n} samples, {d['device']}, "
+                 f"{d['gpu_name']}")
+        print(f"[hws] server subprocess on the card: start, tick, dump, "
+              f"stop answered ok; {n} samples over {float(d['t_s'][-1]):.2f}"
+              f" s, tick at {d['ticks'].tolist()}, power "
+              f"{statistics.fmean(d['tpu_psu']):.2f} W mean; started in "
+              f"{time.perf_counter() - t0:.1f} s all told ({card})")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(sock, ignore_errors=True)
+
+
+def check_trace_union(torch, model, card, steps=2):
+    """Phase 12.3: 2 fused c48-L72 steps under benchmark.profiler.trace,
+    after one profiled step that absorbs the profiler's start-up (as phase
+    8): the union of the Chrome trace's device intervals
+    (hws.xprof_util.device_busy) equals the profiler's device-event total
+    (device_times, phase 8's sum) within 2% - one stream, no overlap."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from geosongpu_tpu_torch.benchmark.profiler import trace
+    from geosongpu_tpu_torch.hws.xprof_util import device_busy
+
+    s = model.run(model.init(perturb=1e-3), 3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        s = model.step(s)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as td:
+        with trace(td, "cuda") as prof:
+            for _ in range(steps):
+                s = model.step(s)
+            torch.cuda.synchronize()
+        total = sum(t for t, _ in device_times(prof).values()) / 1e6
+        busy = device_busy(td)
+    rel = abs(busy["busy_s"] - total) / total
+    print(f"[hws] trace of {steps} fused c48-L72 steps: device busy "
+          f"{busy['busy_s'] * 1e3 / steps:.3f} ms/step from the Chrome "
+          f"trace's interval union, {total * 1e3 / steps:.3f} ms/step from "
+          f"the profiler's device events ({rel * 100:.3f}% apart), duty "
+          f"{busy['duty']:.3f} over {busy['span_s'] * 1e3:.2f} ms ({card})")
+    if rel > 0.02:
+        fail(f"hws: trace union {busy['busy_s']} s vs device events {total} s")
+
+
+def check_sampling_cost(torch, model, dev, card, steps=10):
+    """Phase 12.4: the device-bound c192 preset, after 2 warm-up steps:
+    5 steps without the sampler, 10 with a sample after each (the task's
+    order: after the step's synchronisation, outside its time), 5 without;
+    the sampled median may exceed the unsampled one by 2% at most."""
+    from geosongpu_tpu_torch.hws.server import Sampler
+
+    s = model.run(model.init(perturb=1e-3), 2)
+    torch.cuda.synchronize()
+    times = {False: [], True: []}
+    with contextlib.closing(Sampler(rate_s=0.1, device=dev)) as sampler:
+        for sampled in [False] * (steps // 2) + [True] * steps \
+                + [False] * (steps - steps // 2):
+            t0 = time.perf_counter()
+            s = model.step(s)
+            torch.cuda.synchronize()
+            times[sampled].append(time.perf_counter() - t0)
+            if sampled:
+                sampler.sample_once()
+    off, on = (statistics.median(times[k]) * 1e3 for k in (False, True))
+    print(f"[hws] fused c192-L72, {steps} steps each: median {off:.2f} "
+          f"ms/step without the sampler, {on:.2f} with "
+          f"({(on / off - 1) * 100:+.2f}%; {card})")
+    if on > 1.02 * off:
+        fail(f"hws: sampling moved the c192 step {off:.2f} -> {on:.2f} ms")
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1292,6 +1554,8 @@ def main() -> int:
         fail("torch.cuda.is_available() is False: this script needs a card")
     try:
         from geosongpu_tpu_torch.cli import PRESETS, build_model_for
+        from geosongpu_tpu_torch.hws.nvml import NVML
+        from geosongpu_tpu_torch.hws.server import Sampler
         from geosongpu_tpu_torch.ops.kernels import build, dsw
         from geosongpu_tpu_torch.ops.kernels import columns as kcol
         from geosongpu_tpu_torch.ops.kernels import microphysics as kmic
@@ -1316,6 +1580,18 @@ def main() -> int:
     print(f"[device] {name}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; triton importable: {has_triton}; "
           f"nvcc: {build.find_nvcc()}")
+    # NVML's view of the card, and its idle power before any work is queued
+    with NVML() as nvml:
+        driver = nvml.driver_version()
+    with contextlib.closing(Sampler(rate_s=0.2, device=dev)) as sampler:
+        limit_w = sampler.gpu.power_limit_w
+        idle_w, idle_busy = sample_idle(sampler)
+    smi_w = float(card.rsplit(",", 1)[1].split()[0])
+    print(f"[device] NVML: version {driver}, power limit {limit_w:.2f} W "
+          f"(nvidia-smi {smi_w:.2f} W); idle {idle_w:.2f} W, busy "
+          f"{idle_busy:.3f} (10 samples at 0.2 s)")
+    if abs(limit_w - smi_w) > 0.005:
+        fail(f"NVML's power limit {limit_w} W is not nvidia-smi's {smi_w} W")
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
@@ -1469,7 +1745,17 @@ def main() -> int:
     run_jw_validation(torch, counters, card)
 
     # ---- 11. the CI pipelines through the port's dispatch ---------------
-    run_ci_pipelines(torch, counters, card)
+    run_ci_pipelines(torch, counters, card, limit_w, idle_w)
+
+    # ---- 12. the sampler and the trace reader on the card ---------------
+    check_idle_and_busy(torch, dev, card)
+    check_server(card, name)
+    check_trace_union(torch, build_model_for("held_suarez_c48_l72_fused")(
+        PRESETS["held_suarez_c48_l72_fused"], dev), card)
+    torch.cuda.empty_cache()
+    check_sampling_cost(torch, build_model_for("held_suarez_c192_l72_fused")(
+        PRESETS["held_suarez_c192_l72_fused"], dev), dev, card)
+    torch.cuda.empty_cache()
 
     # each entry: (key of results, kernel, path whose launches it reports)
     entries = [(k, k, "fused") for k in list(KERNELS)[:6]] + [

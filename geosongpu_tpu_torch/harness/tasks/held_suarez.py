@@ -15,6 +15,11 @@ A record's extra holds the mesh description, the launches of each kernel
 over the run (its steps and its tree) and, with a tree, the form its
 "vertical remap" leaf timed.
 
+With HARDWARE_SAMPLING set, the run is sampled (hws.server.Sampler, one
+sample after each timed step) and the record's energy filled: `tpu_kwh` is
+the card's energy counter over the timed steps (0 on the CPU), `cpu_kwh`
+the host model's integral over the samples' times.
+
 The port runs on one device.  An experiment that declares a mesh of more
 devices than the host has runs single-device and says so in the record
 (the original's own branch for such a layout); the sharded path of a mesh
@@ -34,6 +39,8 @@ from ...benchmark.phases import measure_phases, remap_leaf
 from ...benchmark.timing import BenchmarkRecord, StepTimer, report
 from ...core.config import DycoreConfig, ExperimentConfig, MeshConfig
 from ...device import synchronize, to_torch
+from ...hws.analysis import energy_envelope, load_data
+from ...hws.server import Sampler
 from ...ops.kernels import launch_counts
 from ...ops.remap import remap_field, remap_field_banded
 from ...ops.vertical import interfaces_from_delp
@@ -81,12 +88,20 @@ class HeldSuarez(TaskBase):
                    backend_name: str, steps: int, warmup: int,
                    with_phases: bool = False, mesh=None):
         """One measured run -> (BenchmarkRecord, final state, model)."""
-        if env.get("HARDWARE_SAMPLING") in ("1", "true", "True"):
-            raise NotImplementedError(
-                "HARDWARE_SAMPLING: the hardware sampler and energy "
-                "envelope (hws) are not ported yet (ROADMAP A.12)")
         device = torch.device(env.get("device", "cuda"))
         mesh_desc = mesh_description(mesh, device)
+        sampler = None
+        if env.get("HARDWARE_SAMPLING") in ("1", "true", "True"):
+            sampler = Sampler(rate_s=0.1, device=device)
+        try:
+            return self._measure(env, dyc, backend_name, steps, warmup,
+                                 with_phases, device, mesh_desc, sampler)
+        finally:
+            if sampler is not None:
+                sampler.close()
+
+    def _measure(self, env, dyc, backend_name, steps, warmup, with_phases,
+                 device, mesh_desc, sampler):
         before = launch_counts()
         model = self.build_model(dyc, device)
         rec = BenchmarkRecord(
@@ -109,12 +124,20 @@ class HeldSuarez(TaskBase):
         rec.compile_time_s = time.perf_counter() - t0
 
         timer = StepTimer()
+        start = sampler.read_counter() if sampler is not None else None
         for _ in range(steps):
             timer.start()
             state = model.step(state)
             synchronize(device)
             timer.stop()
+            if sampler is not None:
+                # after stop(): the sample's reads (NVML, /proc) stay out
+                # of the step's time; it reads the counter first
+                sampler.sample_once()
         rec.step_time_s = timer.times
+        if sampler is not None:
+            fill_energy(rec, sampler, start, os.path.join(
+                env.CI_WORKSPACE, "hws_" + backend_name.replace(":", "_")))
 
         if with_phases:
             rec.phase_tree = measure_phases(
@@ -216,6 +239,28 @@ class HeldSuarez(TaskBase):
                 env.artifact_directory,
                 f"benchmark_{env.experiment_name}_{rec.backend}.json"))
         Progress.log(rep)
+
+
+def fill_energy(rec: BenchmarkRecord, sampler: Sampler, start,
+                dump_dir: str) -> None:
+    """Dump the samples to dump_dir and fill the record's energy (the
+    original's keys) and its extra: the card's energy over the timed
+    window from its counter (`start`: the counter before the first timed
+    step; the last sample read it just after the last synchronisation),
+    beside the trapezoid of the sampled power, which lags the load (NVML
+    averages it over about a second)."""
+    dump = sampler.dump(dump_dir)
+    er = energy_envelope(load_data(dump))
+    (t0, e0), (t1, e1) = start, sampler.last_counter
+    gpu_j = (e1 - e0) / 1e3 if e0 is not None else 0.0
+    window = t1 - t0
+    rec.energy = {"cpu_kwh": er.cpu_kwh, "tpu_kwh": gpu_j / 3.6e6,
+                  "total_kwh": er.cpu_kwh + gpu_j / 3.6e6}
+    rec.extra.update(
+        hws_dump=dump, gpu_energy_j_counter=gpu_j,
+        gpu_energy_j_samples=er.tpu_joules, window_s=window,
+        mean_gpu_power_w=gpu_j / window if window > 0 else 0.0,
+        j_per_step=gpu_j / len(rec.step_time_s))
 
 
 def check_banded_remap(model, state) -> None:

@@ -5,7 +5,10 @@ every element at the edges of their tiles of columns, fill_q2_zero in its
 multi-tracer form too, cup_gf_sh and aer_activation in every element
 across their blocks' runs of points and on inputs off a 16-byte boundary)
 against their plain PyTorch versions, their input checks, the physics gate
-on the card, and the port's models on the card against the CPU:
+on the card, the hardware sampler's NVML readings of the card (the handle
+is torch's device, the energy counter never decreases, the utilization
+rises under load and falls back when idle), and the port's models on the
+card against the CPU:
 Held-Suarez eager, fused, nonhydrostatic with per-substep tracers and the
 blend damping form, the fused aquaplanet model and the fused JW06 model
 with its terrain.  The synthetic kernel inputs carry a smooth terrain that
@@ -16,6 +19,7 @@ This file imports no jax, so on the card's machine it runs on its own:
     python -m pytest --noconftest -o addopts="" tests/test_torch_cuda.py -q
 """
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -737,3 +741,77 @@ def test_fused_aquaplanet_on_card_matches_cpu(cuda):
     qv_max = float(np.abs(a["q"][..., 0]).max())
     assert float(np.abs(a["q"] - b["q"]).max()) <= 1e-4 * qv_max
     assert b["q"][..., 1].max() > 1e-4 and b["q"][..., 2].max() > 1e-5
+
+
+# ---- the hardware sampler's readings of the card --------------------------
+
+def _load(cuda, seconds, between=None):
+    """Chained float32 matmuls on the card for `seconds`, calling
+    `between()` after each synchronised batch."""
+    a = torch.randn(4096, 4096, device=cuda)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(4):
+            a = torch.tanh(a @ a)
+        torch.cuda.synchronize(cuda)
+        if between is not None:
+            between()
+    return a
+
+
+def test_nvml_handle_is_the_torch_device(cuda):
+    from geosongpu_tpu_torch.hws.nvml import NVML, Device, torch_uuid
+
+    index = torch.cuda.current_device()
+    with Device(cuda) as dev:
+        assert dev.uuid == torch_uuid(index)
+        assert dev.uuid.startswith("GPU-")
+        assert dev.name == torch.cuda.get_device_name(index)
+        assert 0.0 < dev.power_limit_w <= 1000.0
+        assert 0.0 < dev.power_w() <= 1.05 * dev.power_limit_w
+        assert dev.memory_used_mb() > 0.0
+    with NVML() as nvml:
+        assert nvml.driver_version()
+
+
+def test_energy_counter_never_decreases(cuda):
+    from geosongpu_tpu_torch.hws.nvml import Device
+
+    with Device(cuda) as dev:
+        reads = [dev.energy_mj()]
+        _load(cuda, 1.5, lambda: reads.append(dev.energy_mj()))
+        reads.append(dev.energy_mj())
+    assert all(b >= a for a, b in zip(reads, reads[1:]))
+    assert reads[-1] > reads[0]
+
+
+def test_busy_rises_under_load_and_falls_when_idle(cuda):
+    from geosongpu_tpu_torch.hws.server import Sampler
+
+    sampler = Sampler(rate_s=0.2, device=cuda)
+    try:
+        def idle(n):
+            for _ in range(n):
+                sampler.sample_once()
+                time.sleep(0.2)
+
+        idle(6)
+        n0 = len(sampler.data["tpu_busy"])
+        last = [time.perf_counter()]
+
+        def sample_every_rate():
+            if time.perf_counter() - last[0] >= 0.2:
+                sampler.sample_once()
+                last[0] = time.perf_counter()
+
+        _load(cuda, 2.5, sample_every_rate)
+        n1 = len(sampler.data["tpu_busy"])
+        time.sleep(1.5)
+        idle(6)
+    finally:
+        sampler.close()
+    busy = np.asarray(sampler.data["tpu_busy"])
+    before, load, after = busy[:n0], busy[n0:n1], busy[n1:]
+    assert len(load) >= 5
+    assert load.mean() > before.mean() and load.mean() > after.mean()
+    assert load.max() > 0.5 and after.min() < 0.5

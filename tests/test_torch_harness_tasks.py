@@ -18,8 +18,11 @@ the CPU at the smoke entries' sizes.
 - the port's Benchmark action on both smoke entries;
 - the checks of HeldSuarez, HSClimatology and the standalone tasks on
   synthetic inputs: the same outcome and message through both packages;
-- HARDWARE_SAMPLING is refused, and a declared mesh larger than the host
-  gives the reference's single-device description.
+- HARDWARE_SAMPLING on the CPU through both packages: the port's record
+  carries the host's energy and no card's, and its dump reads in the
+  reference's analysis;
+- a declared mesh larger than the host gives the reference's single-device
+  description.
 
 The port runs with one torch thread: the suite runs several workers on
 the same cores.
@@ -45,6 +48,8 @@ from geosongpu_tpu.core.config import MeshConfig as JaxMesh  # noqa: E402
 from geosongpu_tpu.core.state import DycoreState as JaxState  # noqa: E402
 from geosongpu_tpu.dycore import sw as j_sw  # noqa: E402
 from geosongpu_tpu.harness import environment as j_env  # noqa: E402
+from geosongpu_tpu.hws import analysis as j_hws_an  # noqa: E402
+from geosongpu_tpu.hws import server as j_hws_server  # noqa: E402
 from geosongpu_tpu.harness import task as j_task  # noqa: E402
 from geosongpu_tpu.harness.tasks import climatology as j_clim  # noqa: E402
 from geosongpu_tpu.harness.tasks import held_suarez as j_hs  # noqa: E402
@@ -552,14 +557,47 @@ def test_standalone_check_message_matches_reference(kernel):
     assert got["jax"][1].startswith(f"{kernel} dataset 1 var y: rel RMS")
 
 
-# ---- what the port refuses, and the mesh entry ----------------------------
+# ---- hardware sampling, what the port refuses, and the mesh entry ---------
 
-def test_hardware_sampling_is_refused(tmp_path, monkeypatch):
+def test_hardware_sampling_fills_the_record_on_the_cpu(tmp_path,
+                                                      monkeypatch):
+    """HARDWARE_SAMPLING=1, Validation of the smoke entry through both
+    packages on the CPU: the port's record has the reference's energy keys
+    with the host's model energy and no card's, and a dump of one sample a
+    timed step with the reference's series plus their times, which the
+    reference's analysis reads."""
     monkeypatch.setenv("HARDWARE_SAMPLING", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
-        t_task.dispatch("held_suarez_bench_smoke", "Validation",
-                        artifact_directory=str(tmp_path),
-                        workspace=str(tmp_path), device="cpu")
+    exp = "held_suarez_bench_smoke"
+    ref_env = j_task.dispatch(exp, "Validation",
+                              artifact_directory=str(tmp_path / "jax_art"),
+                              workspace=str(tmp_path / "jax_ws"))
+    env = t_task.dispatch(exp, "Validation",
+                          artifact_directory=str(tmp_path / "art"),
+                          workspace=str(tmp_path / "ws"), device="cpu")
+    (ref,), (rec,) = ref_env.get("hs.records"), env.get("hs.records")
+    steps = env.config.run.steps
+    assert set(rec.energy) == set(ref.energy)
+    assert rec.energy["cpu_kwh"] > 0 and rec.energy["tpu_kwh"] == 0
+    assert rec.energy["total_kwh"] == rec.energy["cpu_kwh"]
+    assert rec.extra["gpu_energy_j_counter"] == 0.0
+    assert rec.extra["j_per_step"] == 0.0 and rec.extra["window_s"] > 0
+    dump = rec.extra["hws_dump"]
+    assert dump.startswith(str(tmp_path / "ws"))
+    ref_keys = set(j_hws_an.load_data(ref.extra["hws_dump"]))
+    data = j_hws_an.load_data(dump)
+    assert set(data) == ref_keys | {"t_s", "device", "gpu_name", "gpu_uuid",
+                                    "power_limit_w"}
+    assert all(len(data[k]) == steps for k in j_hws_server.FIELDS + ("t_s",))
+    assert str(data["device"]) == "cpu"
+    assert j_hws_an.energy_envelope(data).cpu_kwh > 0
+    # the record's host energy is the integral over the samples' times
+    cpu_j = rec.energy["cpu_kwh"] * 3.6e6
+    assert cpu_j == pytest.approx(
+        np.trapezoid(data["cpu_psu"], x=data["t_s"]), rel=1e-12)
+    # saved and reloaded through the report of the artifact directory
+    got = t_timing.BenchmarkRecord.load(str(
+        tmp_path / "art" / f"benchmark_{exp}_cpu.json"))
+    assert got.energy == rec.energy
 
 
 @pytest.mark.parametrize("layout", [dict(face=6), dict(face=1, x=4, y=2)])

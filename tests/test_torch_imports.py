@@ -55,7 +55,10 @@ def test_sources_found():
         "ops/kernels/standalone_twins.py", "models/baroclinic_wave.py",
         "harness/exceptions.py", "harness/progress.py",
         "harness/registry.py", "harness/environment.py", "harness/task.py",
-        "harness/tasks/baroclinic.py")} | {"chip_smoke.py"} <= names
+        "harness/tasks/baroclinic.py", "hws/nvml.py", "hws/server.py",
+        "hws/analysis.py", "hws/xprof_util.py", "benchmark/profiler.py",
+        "utils/version_checks.py", "validation/run_status.py")} | {
+            "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -68,6 +71,38 @@ def test_no_jax_and_only_numpy_reference_modules(path):
         if top == "geosongpu_tpu":
             ok = any(mod == a or mod.startswith(a + ".") for a in ALLOWED)
             assert ok, f"{path}:{lineno} imports {mod} (the JAX package)"
+
+
+def _module_level_imports(path: pathlib.Path):
+    """(lineno, module) of the imports that run when the file is imported:
+    every import outside a function body."""
+    def walk(nodes):
+        for node in nodes:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                 ast.Lambda)):
+                continue
+            if isinstance(node, ast.Import):
+                for alias in node.names:
+                    yield node.lineno, alias.name
+            elif isinstance(node, ast.ImportFrom) and not node.level:
+                yield node.lineno, node.module
+            yield from walk(ast.iter_child_nodes(node))
+
+    return walk(ast.parse(path.read_text(), str(path)).body)
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=lambda p: p.relative_to(PKG).as_posix()
+                         if PKG in p.parents else p.name)
+def test_no_host_only_packages_at_import(path):
+    """The card's machine has neither psutil nor matplotlib: no module of
+    the port imports psutil at all, and matplotlib only inside the
+    function that draws."""
+    for lineno, mod in _imported_modules(path):
+        assert mod.split(".")[0] != "psutil", f"{path}:{lineno} imports {mod}"
+    for lineno, mod in _module_level_imports(path):
+        assert mod.split(".")[0] != "matplotlib", \
+            f"{path}:{lineno} imports {mod} when the module is imported"
 
 
 def _no_cuda_here():
