@@ -9,7 +9,8 @@ on any failure (and when no CUDA device is present).
     python3 chip_smoke.py --stages
 
 runs phases 1 and 2 and then only the per-stage view of the fvtp2d
-callers, dsw_csw1 and dsw_nh_pert (STAGE_KERNELS), of remap_banded at
+callers, dsw_csw1, dsw_nh_pert and the blend dsw_wind at c192-L72
+(STAGE_KERNELS), of remap_banded at
 the three calls of a c48-L72 and a c192-L72 step, and of the column
 kernels on the gate's sounding at 128 x 40, 13,824 x 32 and 221,184 x 72
 (COLUMN_STAGES): gfdl_microphysics, the fill of three tracers (three
@@ -258,13 +259,15 @@ METRICS_READ = {
     "dsw_nh_pert": (),
     **{k: () for k in COLUMN_PHYSICS},
 }
-# __global__ stages of csrc/*.cu, as the profiler names them
+# __global__ stages of csrc/*.cu, as the profiler names them;
+# blend_divergence (the blend dsw_wind's separate pass before it was folded
+# into wind_update's tile) stays only while --stages must read an older tree
 PORT_STAGES = ("::csw1(", "::csw2_winds(", "::fvtp2d_tile<",
                "::transport_update(", "::nh_transport_update(",
                "::tracer_update(", "::tracer_sub_update(", "::wind_update<",
                "::blend_divergence(", "::hydro_columns(", "::nh_columns(",
                "::remap_banded_kernel<", "::gfdl_microphysics_columns(",
-               "::fill_q2_zero_columns(", "::aer_activation_points(",
+               "::fill_q2_zero_columns(", "::aer_activation_points",
                "::moist_rad_coup_points(", "::cup_gf_sh_points(",
                "::buoyancy_points(", "::evap_subl_pdf_points(")
 # --stages: preset -> (form, kernels, steps before the inputs are taken)
@@ -274,7 +277,8 @@ STAGE_KERNELS = {
     "held_suarez_c48_l72_nh_fused": ("nh", ["dsw_transport", "dsw_tracer",
                                             "dsw_nh_pert"], 2),
     "held_suarez_c192_l72_fused": ("c192", ["dsw_csw1", "dsw_transport",
-                                            "dsw_tracer_acc"], 1),
+                                            "dsw_tracer_acc", "dsw_wind"],
+                                   1),
 }
 # --stages also takes remap_banded at the step's three calls of these
 # presets' widths (within REL_GATE: the view can run on an older tree)
@@ -557,6 +561,8 @@ def stage_view(torch, label, kern, plain, card, exact, reps=20,
               for n, tc in times.items()
               if any(s in n for s in PORT_STAGES)}
     total = sum(t for t, _ in times.values()) / 10 / 1e3
+    if total <= 0.0:
+        fail(f"{label}: the profiler window holds no device time")
     share = ""
     if bound_of is not None:
         by = bound_of(outputs_of(got))
@@ -1064,8 +1070,9 @@ def profile_steps(torch, model, label, card, steps=2):
     for n, (t, c) in stats.items():
         for stage in PORT_STAGES:
             if stage in n:
-                t0, c0 = stages.get(stage[2:-1], (0.0, 0))
-                stages[stage[2:-1]] = (t0 + t, c0 + c)
+                key = stage[2:].rstrip("(<")
+                t0, c0 = stages.get(key, (0.0, 0))
+                stages[key] = (t0 + t, c0 + c)
     print(f"[profile] {label}: the port's stages, ms/step (launches/step): "
           + ", ".join(f"{k} {t / steps / 1e3:.3f} ({c / steps:.0f})"
                       for k, (t, c) in sorted(stages.items(),

@@ -11,21 +11,34 @@
 // geosongpu_tpu_torch/physics/standalone.py, which is also each kernel's
 // plain PyTorch version.
 //
-// Design: one thread per point (col, k) over the flat [ncol * K] index, so
-// a warp reads and writes neighbouring addresses; the tail of the last
-// block is masked.  cup_gf_sh needs the theta_v of its two vertical
-// neighbours: a block forms theta_v once for each point of its run and
-// the point on each side of it, in shared memory, and each thread reads
-// its neighbours' from there (one powf a point where recomputing them
-// took three).  Their byte bounds at 3.35 TB/s: 2 + 1, 3 + 4 and 4 + 2
-// arrays of [ncol, K], 1.6 to 3.7 us at 13,824 x 32 (1.8 MB an array),
-// 0.057 to 0.133 ms at 221,184 x 72 (63.7 MB).  moist_rad_coup (one expf
-// a point) is bound by those bytes; aer_activation (a powf, a logf, an
-// erff and two IEEE divisions a point for 12 bytes) and cup_gf_sh (a powf
-// and five IEEE divisions a point) by instruction issue, as the library
-// keeps IEEE arithmetic without contraction to match the plain versions
-// bit for bit.  At 13,824 x 32 each call is one launch of 3,456 blocks
-// and its time is mostly the launch.
+// Design: the points of the flat [ncol * K] index, so a warp reads and
+// writes neighbouring addresses; the tail of the last block is masked.
+// Their byte bounds at 3.35 TB/s: 2 + 1, 3 + 4 and 4 + 2 arrays of
+// [ncol, K], 1.6 to 3.7 us at 13,824 x 32 (1.8 MB an array), 0.057 to
+// 0.133 ms at 221,184 x 72 (63.7 MB).  moist_rad_coup (one expf a point)
+// is bound by those bytes and takes one point a thread.  aer_activation (a
+// powf, a logf, an erff and an IEEE division a point for 12 bytes) and
+// cup_gf_sh (a powf and five IEEE divisions a point) are bound by
+// instruction issue, as the library keeps IEEE arithmetic without
+// contraction to match the plain versions bit for bit.
+//
+// aer_activation's smax is one of two clamp values for every w <= 0 and
+// every w at or above kAerWHi, and then so is the activated fraction: a
+// warp whose points all lie on a clamp takes both fractions from two of its
+// lanes, which form them once with the same device expressions, and skips
+// the powf, logf and erff of its points.  From kAerWide points on a thread
+// takes four points, kColThreads apart, so that it has independent
+// transcendental chains to issue and all its loads in flight at once;
+// below that, one point a thread: a grid of fewer, longer threads was
+// slower there (PERF.md, row 11a).  The accesses stay 4-byte and coalesced,
+// which takes any alignment of the views.  The reciprocal of denom is
+// taken once, on the host.
+//
+// cup_gf_sh needs the theta_v of its two vertical neighbours: a block forms
+// theta_v once for each point of its run and the point on each side of it,
+// in shared memory, and each thread reads its neighbours' from there (one
+// powf a point where recomputing them took three).  At 13,824 x 32 each
+// call is one launch and its time is mostly the launch.
 #include "column_common.cuh"
 
 namespace {
@@ -33,17 +46,59 @@ namespace {
 // standalone.aer_activation: smax = clip(0.01 max(w, 0)^0.75, 1e-5, 0.1);
 // frac = 0.5 (1 - erf(log(s_crit0 / smax) / denom)), denom = sqrt(2) 1.5
 // log(sigma_g); out = num_aer frac.
+//
+// 0.01 w^0.75 reaches the upper clamp 0.1 at w = 10^(4/3) = 21.544; from
+// 21.6 on it is at least 0.10019, further above 0.1 than powf's error.
+constexpr float kAerWHi = 21.6f;
+// Flat sizes from which a thread takes four points, not one.
+constexpr long long kAerWide = 1LL << 20;
+
+__device__ __forceinline__ float aer_smax(float w) {
+  return clampf(0.01f * powf(fmaxf(w, 0.0f), 0.75f), 1.0e-5f, 0.1f);
+}
+
+__device__ __forceinline__ float aer_frac(float smax, float s_crit0,
+                                          float rdenom) {
+  const float ln_ratio = logf(rcp(smax) * s_crit0);
+  return 0.5f * (1.0f - erff(ln_ratio * rdenom));
+}
+
+// Per points a thread, kColThreads apart.  A warp whose points of one step
+// all lie on a clamp (or past n) takes frac from lanes 0 and 1, which form
+// it at smax 1e-5 and 0.1 the first time the warp needs it.
+template <int Per>
 __global__ void __launch_bounds__(kColThreads)
 aer_activation_points(long long n, const float* __restrict__ num_aer,
-                      const float* __restrict__ w, float s_crit0, float denom,
-                      float* __restrict__ nact) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float smax = clampf(0.01f * powf(fmaxf(w[i], 0.0f), 0.75f), 1.0e-5f,
-                            0.1f);
-  const float ln_ratio = logf(rcp(smax) * s_crit0);
-  const float frac = 0.5f * (1.0f - erff(ln_ratio * rcp(denom)));
-  nact[i] = num_aer[i] * frac;
+                      const float* __restrict__ w, float s_crit0,
+                      float rdenom, float* __restrict__ nact) {
+  const long long base =
+      (long long)blockIdx.x * (kColThreads * Per) + threadIdx.x;
+  float wv[Per], na[Per];
+#pragma unroll
+  for (int r = 0; r < Per; ++r) {
+    const long long i = base + r * kColThreads;
+    wv[r] = i < n ? w[i] : 0.0f;
+    na[r] = i < n ? num_aer[i] : 0.0f;
+  }
+  float clamp_frac = 0.0f;
+  bool formed = false;  // the same in every lane of the warp
+#pragma unroll
+  for (int r = 0; r < Per; ++r) {
+    const long long i = base + r * kColThreads;
+    const bool hi = wv[r] >= kAerWHi;
+    float frac;
+    if (__all_sync(0xffffffffu, wv[r] <= 0.0f || hi || i >= n)) {
+      if (!formed) {
+        clamp_frac = aer_frac(threadIdx.x & 1 ? 0.1f : 1.0e-5f, s_crit0,
+                              rdenom);
+        formed = true;
+      }
+      frac = __shfl_sync(0xffffffffu, clamp_frac, hi ? 1 : 0);
+    } else {
+      frac = aer_frac(aer_smax(wv[r]), s_crit0, rdenom);
+    }
+    if (i < n) nact[i] = na[r] * frac;
+  }
 }
 
 // standalone.moist_rad_coup: condensate ql + qi, cloud fraction
@@ -134,9 +189,17 @@ extern "C" int aer_activation_f32(long long ncol, int K, const void* num_aer,
   const int rc = prepare(ncol, K, device);
   if (rc != 0 || ncol == 0) return rc;
   const long long n = ncol * K;
-  aer_activation_points<<<col_blocks(n), kColThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      n, cf(num_aer), cf(w), s_crit0, denom, wf(nact));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the plain version's division by denom, as PyTorch's CUDA kernel takes
+  // it: a product with the float reciprocal, which IEEE division rounds
+  // alike on the host and on the card
+  const float rdenom = 1.0f / denom;
+  if (n >= kAerWide)
+    aer_activation_points<4><<<col_blocks((n + 3) / 4), kColThreads, 0, s>>>(
+        n, cf(num_aer), cf(w), s_crit0, rdenom, wf(nact));
+  else
+    aer_activation_points<1><<<col_blocks(n), kColThreads, 0, s>>>(
+        n, cf(num_aer), cf(w), s_crit0, rdenom, wf(nact));
   return (int)cudaGetLastError();
 }
 

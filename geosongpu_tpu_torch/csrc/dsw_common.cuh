@@ -22,8 +22,8 @@
 //   operand of a float32 tensor.
 // * The horizontal stencil stages (csw1, csw2_winds, fvtp2d_tile,
 //   wind_update) work on shared-memory tiles of points, k fastest, so that
-//   a warp reads neighbouring addresses; the per-cell updates and
-//   blend_divergence run one thread per (f, j, i, k) point.  The column
+//   a warp reads neighbouring addresses; the per-cell updates run one
+//   thread per (f, j, i, k) point.  The column
 //   stages (hydro_columns here, nh_columns in dsw_nh_pert.cu) take a tile
 //   of neighbouring columns per block (column_tile.cuh) and share its
 //   staging and the pe sum (stage_columns_pe).

@@ -13,21 +13,18 @@
 //
 // The damping divergence is either passed in (the exchange form, computed
 // by the glue) or, in the blend form the model takes above npx 96
-// (dycore/sw.py wind_part, div_c_in=None), computed here by the
-// blend_divergence stage: the corner-dual contour of pu/pv, edge-replicated
-// from the core corners, replaced by the dw-weighted centre-to-corner
-// interpolation of the cell divergence of uct/vct where div_blend is set.
-// In nonhydrostatic mode the PGF takes three more corner-interpolated
-// fields, the p', phi' and rho of dsw_nh_pert.cu (the NH branch of k4,
-// sw_pallas.py:658-670).
+// (dycore/sw.py wind_part, div_c_in=None), formed here at every corner: the
+// corner-dual contour of pu/pv, edge-replicated from the core corners,
+// replaced by the dw-weighted centre-to-corner interpolation of the cell
+// divergence of uct/vct where div_blend is set.  In nonhydrostatic mode the
+// PGF takes three more corner-interpolated fields, the p', phi' and rho of
+// dsw_nh_pert.cu (the NH branch of k4, sw_pallas.py:658-670).
 //
 // Stages on the caller's stream: (1) hydro_columns (dsw_common.cuh), pkz
 // and phi to scratch, a tile of neighbouring columns per block; (2)
-// blend_divergence over [F, Ny+1, Nx+1, K] to scratch, in the blend form
-// only, one thread per corner and level; (3) wind_update, a tile of kTJ x
-// kTI points per block, walking K in chunks of kTK levels.  The column sums
-// are kept in double as the plain version's are, so kernel and plain
-// version agree operation by operation.
+// wind_update<NF, Blend>, a tile of kTJ x kTI points per block, walking K
+// in chunks of kTK levels.  The column sums are kept in double as the plain
+// version's are, so kernel and plain version agree operation by operation.
 //
 // What bounds it on this card: its bytes.  At c48-L72 about 12 field-sized
 // arrays move (~60 MB, 18 us at 3.35 TB/s; 15 with the nonhydrostatic
@@ -46,8 +43,22 @@
 // values are fetched into registers while this chunk computes, so no phase
 // waits on device memory.  Each corner value is the same expression in the
 // same order wherever it is used, so the bits do not depend on the tile.
-// blend_divergence keeps the first design; folding it into the tile needs
-// pu, pv, uct and vct with a second rim.
+//
+// The blend form (Blend = true) forms the damping divergence in the same
+// corner phase instead of reading div_c: it stages pu and pv with a
+// one-cell rim, and uct and vct one cell wider across the flow than the
+// exchange form does.  A dual corner takes the contour of its four dual
+// fluxes from the staged pu/pv; a cell corner interpolates the cell
+// divergence of uct/vct, which is formed once per staged cell and chunk
+// behind one more barrier, taken only by blocks with a cell corner (the
+// band along the face edges and around the cube corners).  The point's own
+// pu and pv then come from the staged tiles too.  So no div_c [F, Ny+1,
+// Nx+1, K] is written and read back, and no corner's fluxes are read from
+// device memory.  The dual corners are dealt so that no thread takes two
+// corners of both kinds, as the corner phase, between two barriers, is
+// where the blend form adds its time (PERF.md, row 5bd).  The exchange form
+// compiles as before: the blend tiles and phases exist only in the Blend
+// instances.
 #include "dsw_common.cuh"
 
 namespace {
@@ -61,89 +72,32 @@ struct WindIn {
   const float* pkz;   // column stage output
   const float* phi;
   const float* vort;  // absolute vorticity [F, Ny, Nx, K]
-  const float* div_c; // [F, Ny+1, Nx+1, K]
+  const float* div_c; // [F, Ny+1, Nx+1, K]; null in the blend form
   const float* pp;    // nonhydrostatic p', phi', rho [F, Ny, Nx, K], or
   const float* php;   // null
   const float* rho;
 };
 
-// Cell divergence of the time-centred C-grid winds at centre (j, i):
-// -(ddx(uct dy) + ddy(vct dx)) rarea.
-__device__ __forceinline__ float div_cell(const Arr& uct, const Arr& vct,
-                                          const Metrics& m, int f, int j,
-                                          int i, int k) {
-  const float dx_ = uct(f, j, i, k) * met(m, DY, f, j, i) -
-                    uct(f, j, i + 1, k) * met(m, DY, f, j, i + 1);
-  const float dy_ = vct(f, j, i, k) * met(m, DX, f, j, i) -
-                    vct(f, j + 1, i, k) * met(m, DX, f, j + 1, i);
-  return -(dx_ + dy_) * met(m, RAREA, f, j, i);
-}
-
-// Dual-edge normal flux of the D-grid u at u-point (j, i): the transverse
-// wind is the 4-point mean of pv, edge-replicated in j.
-__device__ __forceinline__ float dual_uf(const Arr& pu, const Arr& pv,
-                                         const Metrics& m, int f, int j,
-                                         int i, int k, int Ny) {
-  const int ja = clampi(j, 1, Ny - 1);
-  const float vm0 = 0.5f * (pv(f, ja - 1, i, k) + pv(f, ja - 1, i + 1, k));
-  const float vm1 = 0.5f * (pv(f, ja, i, k) + pv(f, ja, i + 1, k));
-  const float vu = 0.5f * (vm0 + vm1);
-  return (pu(f, j, i, k) - met(m, COSA_J, f, j, i) * vu) *
-         met(m, RSINA_J, f, j, i) * met(m, DYC, f, j, i);
-}
-
-// ... of the D-grid v at v-point (j, i).
-__device__ __forceinline__ float dual_vf(const Arr& pu, const Arr& pv,
-                                         const Metrics& m, int f, int j,
-                                         int i, int k, int Nx) {
-  const int ia = clampi(i, 1, Nx - 1);
-  const float um0 = 0.5f * (pu(f, j, ia - 1, k) + pu(f, j + 1, ia - 1, k));
-  const float um1 = 0.5f * (pu(f, j, ia, k) + pu(f, j + 1, ia, k));
-  const float uv = 0.5f * (um0 + um1);
-  return (pv(f, j, i, k) - met(m, COSA_I, f, j, i) * uv) *
-         met(m, RSINA_I, f, j, i) * met(m, DXC, f, j, i);
-}
-
-// The blend damping divergence at every corner.
-__global__ void __launch_bounds__(kThreads)
-blend_divergence(Metrics m, int F, int Ny, int Nx, int K,
-                 const float* __restrict__ pu_, const float* __restrict__ pv_,
-                 const float* __restrict__ uct_,
-                 const float* __restrict__ vct_, float* __restrict__ div_c) {
-  int f, jc, ic, k;
-  if (!decode(F, Ny + 1, Nx + 1, K, f, jc, ic, k)) return;
-  const Arr pu = {pu_, Ny + 1, Nx, K}, pv = {pv_, Ny, Nx + 1, K};
-  const Arr uct = {uct_, Ny, Nx + 1, K}, vct = {vct_, Ny + 1, Nx, K};
-  float out;
-  if (met(m, DIV_BLEND, f, jc, ic) > 0.5f) {
-    const int j0 = clampi(jc - 1, 0, Ny - 1), j1 = clampi(jc, 0, Ny - 1);
-    const int i0 = clampi(ic - 1, 0, Nx - 1), i1 = clampi(ic, 0, Nx - 1);
-    out = corner_w4(div_cell(uct, vct, m, f, j0, i0, k),
-                    div_cell(uct, vct, m, f, j0, i1, k),
-                    div_cell(uct, vct, m, f, j1, i0, k),
-                    div_cell(uct, vct, m, f, j1, i1, k),
-                    met(m, DW00, f, jc, ic), met(m, DW01, f, jc, ic),
-                    met(m, DW10, f, jc, ic), met(m, DW11, f, jc, ic));
-  } else {
-    const int j = clampi(jc, 1, Ny - 1), i = clampi(ic, 1, Nx - 1);
-    const float du = dual_uf(pu, pv, m, f, j, i, k, Ny) -
-                     dual_uf(pu, pv, m, f, j, i - 1, k, Ny);
-    const float dv = dual_vf(pu, pv, m, f, j, i, k, Nx) -
-                     dual_vf(pu, pv, m, f, j - 1, i, k, Nx);
-    out = (du + dv) * met(m, RAREA_C, f, j, i);
-  }
-  div_c[off(Ny + 1, Nx + 1, K, f, jc, ic, k)] = out;
-}
-
 // What a block stages per chunk of levels, for its points j0 .. j0+kTJ-1 by
 // i0 .. i0+kTI-1 and their corners j0 .. j0+kTJ by i0 .. i0+kTI:
 using CentPlan = StagePlan<kTJ + 2, kTI + 2>;  // centres from (j0-1, i0-1)
-using UctPlan = StagePlan<kTJ + 3, kTI + 1>;   // uct from (j0-2, i0)
-using VctPlan = StagePlan<kTJ + 1, kTI + 3>;   // vct from (j0, i0-2)
 using CornPlan = StagePlan<kTJ + 1, kTI + 1>;  // div_c from (j0, i0)
 using VortPlan = StagePlan<kTJ + 5, kTI + 5>;  // vort from (j0-3, i0-3)
-constexpr int kCentI = kTI + 2, kUctI = kTI + 1, kVctI = kTI + 3;
+// uct from (j0-2, i0-kB) and vct from (j0-kB, i0-2), where kB is 1 in the
+// blend form, whose cell divergence reads them one cell further out
+template <bool Blend>
+struct WindPlans {
+  static constexpr int kB = Blend ? 1 : 0;
+  static constexpr int kUctI = kTI + 1 + 2 * kB;
+  using Uct = StagePlan<kTJ + 3, kUctI>;
+  using Vct = StagePlan<kTJ + 1 + 2 * kB, kTI + 3>;
+};
+// the blend form's pu and pv, both from (j0-1, i0-1)
+using PuPlan = StagePlan<kTJ + 3, kTI + 2>;
+using PvPlan = StagePlan<kTJ + 2, kTI + 3>;
+constexpr int kCentI = kTI + 2, kVctI = kTI + 3;
 constexpr int kCornI = kTI + 1, kVortI = kTI + 5;
+constexpr int kPuI = kTI + 2, kPvI = kTI + 3;
 constexpr int kCorners = (kTJ + 1) * (kTI + 1);
 enum CornerMetric {
   kDw00, kDw01, kDw10, kDw11, kRsin2, kCosa, kCornerMetrics
@@ -151,38 +105,76 @@ enum CornerMetric {
 
 // NF corner-interpolated fields: pt, pkz, phi, and in nonhydrostatic mode
 // rho, phi', p'.
-template <int NF>
+template <int NF, bool Blend>
 struct WindTiles {
   float cent[NF][CentPlan::kCount];
   float corn[NF + 1][CornPlan::kCount];  // the NF fields, then ke
-  float uct[UctPlan::kCount];
-  float vct[VctPlan::kCount];
+  float uct[WindPlans<Blend>::Uct::kCount];
+  float vct[WindPlans<Blend>::Vct::kCount];
   float div[CornPlan::kCount];
   float vort[VortPlan::kCount];
   float cmet[kCornerMetrics][kCorners];
 };
 
-template <int NF>
+// The dual fluxes at u-points (j0 .. j0+kTJ) x (i0-1 .. i0+kTI) and at
+// v-points (j0-1 .. j0+kTJ) x (i0 .. i0+kTI) of a block whose corners lie
+// in the face.
+constexpr int kUfI = kTI + 2, kVfI = kTI + 1;
+enum DualMetric { kDualCosa, kDualRsina, kDualDc, kDualMetrics };
+
+// What the blend form stages besides WindTiles: the metrics once per
+// block, pu, pv and the cell divergence per chunk.
+struct BlendTiles {
+  float pu[PuPlan::kCount];
+  float pv[PvPlan::kCount];
+  float cell[CentPlan::kCount];  // div_cell of the staged cells
+  float dy[(kTJ + 3) * (kTI + 3)];  // at the staged uct
+  float dx[(kTJ + 3) * (kTI + 3)];  // at the staged vct
+  float rarea[(kTJ + 2) * kCentI];  // at the staged cells
+  float uf[kDualMetrics][(kTJ + 1) * kUfI];  // cosa_j, rsina_j, dyc
+  float vf[kDualMetrics][(kTJ + 2) * kVfI];  // cosa_i, rsina_i, dxc
+  float rarea_c[kCorners];  // from (j0, i0)
+  float blend[kCorners];    // div_blend at the tile's corners
+};
+
+template <int NF, bool Blend>
+constexpr size_t wind_tile_bytes() {
+  return sizeof(WindTiles<NF, Blend>) + (Blend ? sizeof(BlendTiles) : 0);
+}
+
+template <int NF, bool Blend>
 __global__ void __launch_bounds__(kTileThreads)
 wind_update(Metrics m, int F, int Ny, int Nx, int K, WindIn in, float dt,
             int hord_mt, float d2dt, float vtxdt, int use_vtx, float cp_air,
             float* __restrict__ u_new, float* __restrict__ v_new) {
+  using P = WindPlans<Blend>;
+  constexpr int kB = P::kB, kUctI = P::kUctI;
   extern __shared__ float wind_tiles[];
-  WindTiles<NF>& t = *reinterpret_cast<WindTiles<NF>*>(wind_tiles);
+  WindTiles<NF, Blend>& t =
+      *reinterpret_cast<WindTiles<NF, Blend>*>(wind_tiles);
+  BlendTiles& b = *reinterpret_cast<BlendTiles*>(
+      wind_tiles + sizeof(WindTiles<NF, Blend>) / sizeof(float));
   const int f = blockIdx.z, j0 = blockIdx.y * kTJ, i0 = blockIdx.x * kTI;
   const int tid = threadIdx.x, kl = tid % kTK;
   const float* fields[6] = {in.pt, in.pkz, in.phi, in.rho, in.php, in.pp};
 
   CentPlan cent_plan;
-  UctPlan uct_plan;
-  VctPlan vct_plan;
+  typename P::Uct uct_plan;
+  typename P::Vct vct_plan;
   CornPlan div_plan;
   VortPlan vort_plan;
+  PuPlan pu_plan;
+  PvPlan pv_plan;
   cent_plan.init(Ny, Nx, K, f, j0 - 1, i0 - 1);
-  uct_plan.init(Ny, Nx + 1, K, f, j0 - 2, i0);
-  vct_plan.init(Ny + 1, Nx, K, f, j0, i0 - 2);
-  div_plan.init(Ny + 1, Nx + 1, K, f, j0, i0);
+  uct_plan.init(Ny, Nx + 1, K, f, j0 - 2, i0 - kB);
+  vct_plan.init(Ny + 1, Nx, K, f, j0 - kB, i0 - 2);
   vort_plan.init(Ny, Nx, K, f, j0 - 3, i0 - 3);
+  if constexpr (Blend) {
+    pu_plan.init(Ny + 1, Nx, K, f, j0 - 1, i0 - 1);
+    pv_plan.init(Ny, Nx + 1, K, f, j0 - 1, i0 - 1);
+  } else {
+    div_plan.init(Ny + 1, Nx + 1, K, f, j0, i0);
+  }
   stage_metric<kTJ + 1, kTI + 1>(t.cmet[kDw00], m, DW00, f, j0, i0);
   stage_metric<kTJ + 1, kTI + 1>(t.cmet[kDw01], m, DW01, f, j0, i0);
   stage_metric<kTJ + 1, kTI + 1>(t.cmet[kDw10], m, DW10, f, j0, i0);
@@ -205,9 +197,97 @@ wind_update(Metrics m, int F, int Ny, int Nx, int K, WindIn in, float dt,
     cc[r] = e < CornPlan::kCount ? cell : -1;
     cs[r] = tile_at(kCentI, cj, ci, kl);
     const int jc = min(j0 + cj, Ny), ic = min(i0 + ci, Nx);
-    su[r] = tile_at(kUctI, clampi(jc - 1, 0, Ny - 2) - (j0 - 2), ic - i0, kl);
-    sv[r] = tile_at(kVctI, jc - j0, clampi(ic - 1, 0, Nx - 2) - (i0 - 2), kl);
+    su[r] = tile_at(kUctI, clampi(jc - 1, 0, Ny - 2) - (j0 - 2),
+                    ic - (i0 - kB), kl);
+    sv[r] = tile_at(kVctI, jc - (j0 - kB), clampi(ic - 1, 0, Nx - 2) -
+                    (i0 - 2), kl);
   }
+  // Blend form: the dual corners of a thread are not its corners above.
+  // The tile has kCount corner elements for kTileThreads threads, so the
+  // first kDualShift threads take two corners above and the others one;
+  // the dual corners start kDualShift elements on (element tid +
+  // kDualShift, and tid + kDualShift - kTileThreads where that is one), so
+  // that no thread takes two of both.  dc: the corner, -1 for none; (dj,
+  // di): the point of its dual contour, relative to (j0, i0).
+  constexpr int kDualShift = CornPlan::kCount - kTileThreads;
+  static_assert(kDualShift >= 0 && kDualShift < kTileThreads &&
+                    kDualShift % kTK == 0 && kTileThreads % kTK == 0,
+                "each thread takes one or two dual corners of its level");
+  int dc[2], dj[2], di[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int e = tid + kDualShift - r * kTileThreads;
+    const int cell = e / kTK, jc = min(j0 + cell / kCornI, Ny);
+    const int ic = min(i0 + cell % kCornI, Nx);
+    dc[r] = e >= 0 ? cell : -1;
+    dj[r] = clampi(jc, 1, Ny - 1) - j0;
+    di[r] = clampi(ic, 1, Nx - 1) - i0;
+  }
+  // the staged uct and vct cells of the thread's staged cells' divergence
+  int cu[CentPlan::kPer], cv[CentPlan::kPer];
+  // A block whose first corner row is Ny or first corner column Nx updates
+  // no point (its points keep pu/pv), so it forms no dual corner: the
+  // contour of its clamped corners lies outside its tiles.
+  const bool dual_ok = j0 < Ny && i0 < Nx;
+  bool has_cell = false;
+  if constexpr (Blend) {
+#pragma unroll
+    for (int r = 0; r < CentPlan::kPer; ++r) {
+      const int cell = (tid + r * kTileThreads) / kTK;
+      const int jj = clampi(j0 - 1 + cell / kCentI, 0, Ny - 1);
+      const int ii = clampi(i0 - 1 + cell % kCentI, 0, Nx - 1);
+      cu[r] = (jj - (j0 - 2)) * kUctI + ii - (i0 - 1);
+      cv[r] = (jj - (j0 - 1)) * kVctI + ii - (i0 - 2);
+    }
+    stage_metric<kTJ + 3, kTI + 3>(b.dy, m, DY, f, j0 - 2, i0 - 1);
+    stage_metric<kTJ + 3, kTI + 3>(b.dx, m, DX, f, j0 - 1, i0 - 2);
+    stage_metric<kTJ + 2, kTI + 2>(b.rarea, m, RAREA, f, j0 - 1, i0 - 1);
+    stage_metric<kTJ + 1, kUfI>(b.uf[kDualCosa], m, COSA_J, f, j0, i0 - 1);
+    stage_metric<kTJ + 1, kUfI>(b.uf[kDualRsina], m, RSINA_J, f, j0, i0 - 1);
+    stage_metric<kTJ + 1, kUfI>(b.uf[kDualDc], m, DYC, f, j0, i0 - 1);
+    stage_metric<kTJ + 2, kVfI>(b.vf[kDualCosa], m, COSA_I, f, j0 - 1, i0);
+    stage_metric<kTJ + 2, kVfI>(b.vf[kDualRsina], m, RSINA_I, f, j0 - 1, i0);
+    stage_metric<kTJ + 2, kVfI>(b.vf[kDualDc], m, DXC, f, j0 - 1, i0);
+    stage_metric<kTJ + 1, kTI + 1>(b.rarea_c, m, RAREA_C, f, j0, i0);
+    stage_metric<kTJ + 1, kTI + 1>(b.blend, m, DIV_BLEND, f, j0, i0);
+    __syncthreads();
+    for (int c = 0; c < kCorners; ++c) has_cell |= b.blend[c] > 0.5f;
+  }
+
+  // The blend form's damping divergence at corner r of the thread in the
+  // dual form: dycore/sw.py's uf and vf (the transverse wind the 4-point
+  // mean of the other component) at the corner's clamped point (j, i),
+  // du = uf(j, i) - uf(j, i-1), dv = vf(j, i) - vf(j-1, i), times rarea_c.
+  const auto dual_div = [&](int r) {
+    const float* pu = b.pu + tile_at(kPuI, dj[r] + 1, di[r] + 1, kl);
+    const float* pv = b.pv + tile_at(kPvI, dj[r] + 1, di[r] + 1, kl);
+    constexpr int sy = kPuI * kTK, sx = kTK, ty = kPvI * kTK;
+    // uf at u-point (j, i - a): pu there, pv of rows j-1, j, columns
+    // i-a, i-a+1
+    const auto uf = [&](int a) {
+      const float* q = pv - a * sx;
+      const float vm0 = 0.5f * (q[-ty] + q[-ty + sx]);
+      const float vm1 = 0.5f * (q[0] + q[sx]);
+      const float vu = 0.5f * (vm0 + vm1);
+      const int o = dj[r] * kUfI + di[r] + 1 - a;
+      return (pu[-a * sx] - b.uf[kDualCosa][o] * vu) * b.uf[kDualRsina][o] *
+             b.uf[kDualDc][o];
+    };
+    // vf at v-point (j - a, i): pv there, pu of rows j-a, j-a+1, columns
+    // i-1, i
+    const auto vf = [&](int a) {
+      const float* q = pu - a * sy;
+      const float um0 = 0.5f * (q[-sx] + q[sy - sx]);
+      const float um1 = 0.5f * (q[0] + q[sy]);
+      const float uv = 0.5f * (um0 + um1);
+      const int o = (dj[r] + 1 - a) * kVfI + di[r];
+      return (pv[-a * ty] - b.vf[kDualCosa][o] * uv) * b.vf[kDualRsina][o] *
+             b.vf[kDualDc][o];
+    };
+    const float du = uf(0) - uf(1);
+    const float dv = vf(0) - vf(1);
+    return (du + dv) * b.rarea_c[dj[r] * kCornI + di[r]];
+  };
 
   // the thread's point (j, i): u between corners (j, i) and (j, i+1), v
   // between corners (j, i) and (j+1, i)
@@ -255,22 +335,31 @@ wind_update(Metrics m, int F, int Ny, int Nx, int K, WindIn in, float dt,
                            kVortI * kTK, j0 - 3, Ny};
   const TileLine vort_x = {t.vort + tile_at(kVortI, tj + 3, 0, kl), kTK,
                            i0 - 3, Nx};
-  const int ovct = tile_at(kVctI, tj, ti + 2, kl);
-  const int ouct = tile_at(kUctI, tj + 2, ti, kl);
+  const int ovct = tile_at(kVctI, tj + kB, ti + 2, kl);
+  const int ouct = tile_at(kUctI, tj + 2, ti + kB, kl);
+  // blend form: pu and pv at (j, i) in their tiles
+  const int opu = tile_at(kPuI, tj + 1, ti + 1, kl);
+  const int opv = tile_at(kPvI, tj + 1, ti + 1, kl);
 
   // Registers for the next chunk's values, fetched while this one computes.
-  float n_cent[NF][CentPlan::kPer], n_uct[UctPlan::kPer];
-  float n_vct[VctPlan::kPer], n_div[CornPlan::kPer], n_vort[VortPlan::kPer];
-  float n_pu = 0.0f, n_pv = 0.0f;
+  float n_cent[NF][CentPlan::kPer], n_uct[P::Uct::kPer];
+  float n_vct[P::Vct::kPer], n_div[CornPlan::kPer], n_vort[VortPlan::kPer];
+  float n_pu[PuPlan::kPer], n_pv[PvPlan::kPer];
+  float n_pu0 = 0.0f, n_pv0 = 0.0f;
   const auto fetch = [&](int k) {
 #pragma unroll
     for (int n = 0; n < NF; ++n) cent_plan.fetch(n_cent[n], fields[n], k);
     uct_plan.fetch(n_uct, in.uct, k);
     vct_plan.fetch(n_vct, in.vct, k);
-    div_plan.fetch(n_div, in.div_c, k);
+    if constexpr (!Blend) div_plan.fetch(n_div, in.div_c, k);
     vort_plan.fetch(n_vort, in.vort, k);
-    if (on_u) n_pu = in.pu[ou + k];
-    if (on_v) n_pv = in.pv[ov + k];
+    if constexpr (Blend) {
+      pu_plan.fetch(n_pu, in.pu, k);
+      pv_plan.fetch(n_pv, in.pv, k);
+    } else {
+      if (on_u) n_pu0 = in.pu[ou + k];
+      if (on_v) n_pv0 = in.pv[ov + k];
+    }
   };
   fetch(min(kl, K - 1));
   for (int k0 = 0; k0 < K; k0 += kTK) {
@@ -278,9 +367,13 @@ wind_update(Metrics m, int F, int Ny, int Nx, int K, WindIn in, float dt,
     for (int n = 0; n < NF; ++n) cent_plan.commit(t.cent[n], n_cent[n]);
     uct_plan.commit(t.uct, n_uct);
     vct_plan.commit(t.vct, n_vct);
-    div_plan.commit(t.div, n_div);
+    if constexpr (!Blend) div_plan.commit(t.div, n_div);
     vort_plan.commit(t.vort, n_vort);
-    const float pu = n_pu, pv = n_pv;
+    if constexpr (Blend) {
+      pu_plan.commit(b.pu, n_pu);
+      pv_plan.commit(b.pv, n_pv);
+    }
+    const float pu0 = n_pu0, pv0 = n_pv0;
     __syncthreads();
     if (k0 + kTK < K) fetch(min(k0 + kTK + kl, K - 1));
 #pragma unroll
@@ -302,12 +395,44 @@ wind_update(Metrics m, int F, int Ny, int Nx, int K, WindIn in, float dt,
           0.5f * t.cmet[kRsin2][cc[r]] *
           (ub * ub + vb * vb + 2.0f * t.cmet[kCosa][cc[r]] * ub * vb);
     }
+    if constexpr (Blend) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (dc[r] >= 0 && !(b.blend[dc[r]] > 0.5f))
+          t.div[dc[r] * kTK + kl] = dual_ok ? dual_div(r) : 0.0f;
+    }
+    if constexpr (Blend) {
+      if (has_cell) {   // the same for every thread of the block
+        // -(ddx(uct dy) + ddy(vct dx)) rarea at each staged cell
+#pragma unroll
+        for (int r = 0; r < CentPlan::kPer; ++r) {
+          const int e = tid + r * kTileThreads;
+          if (e >= CentPlan::kCount) continue;
+          const float* u = t.uct + cu[r] * kTK + kl;
+          const float* v = t.vct + cv[r] * kTK + kl;
+          const float dx_ = u[0] * b.dy[cu[r]] - u[kTK] * b.dy[cu[r] + 1];
+          const float dy_ = v[0] * b.dx[cv[r]] -
+                            v[kVctI * kTK] * b.dx[cv[r] + kVctI];
+          b.cell[e] = -(dx_ + dy_) * b.rarea[e / kTK];
+        }
+        __syncthreads();
+#pragma unroll
+        for (int r = 0; r < CornPlan::kPer; ++r) {
+          if (cc[r] < 0 || !(b.blend[cc[r]] > 0.5f)) continue;
+          const float* c = b.cell + cs[r];
+          t.div[tid + r * kTileThreads] = corner_w4(
+              c[0], c[kTK], c[kCentI * kTK], c[(kCentI + 1) * kTK],
+              t.cmet[kDw00][cc[r]], t.cmet[kDw01][cc[r]],
+              t.cmet[kDw10][cc[r]], t.cmet[kDw11][cc[r]]);
+        }
+      }
+    }
     __syncthreads();
 
     const int k = k0 + kl;
     if (k < K) {
       if (on_u) {
-        float out = pu;
+        float out = Blend ? b.pu[opu] : pu0;
         if (in_u) {
           const float vc = t.vct[ovct];
           const float cry = vc * dt * rdyc;
@@ -333,7 +458,7 @@ wind_update(Metrics m, int F, int Ny, int Nx, int K, WindIn in, float dt,
         u_new[ou + k] = out;
       }
       if (on_v) {
-        float out = pv;
+        float out = Blend ? b.pv[opv] : pv0;
         if (in_v) {
           const float uc = t.uct[ouct];
           const float crx = uc * dt * rdxc;
@@ -364,23 +489,40 @@ wind_update(Metrics m, int F, int Ny, int Nx, int K, WindIn in, float dt,
   }
 }
 
-// wind_update<NF> on stream s; its tiles need more than the 48 KB of shared
-// memory a launch gets without opting in when NF is 6.
-template <int NF>
+// wind_update<NF, Blend> on stream s; its tiles need more than the 48 KB of
+// shared memory a launch gets without opting in, except in the exchange
+// form with NF 3.
+template <int NF, bool Blend>
 cudaError_t launch_wind_update(const Metrics& m, int F, int Ny, int Nx, int K,
                                const WindIn& in, float dt, int hord_mt,
                                float d2dt, float vtxdt, int use_vtx,
                                float cp_air, float* u_new, float* v_new,
                                cudaStream_t s) {
-  const size_t bytes = sizeof(WindTiles<NF>);
+  const size_t bytes = wind_tile_bytes<NF, Blend>();
   cudaError_t err = cudaFuncSetAttribute(
-      wind_update<NF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wind_update<NF, Blend>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return err;
-  wind_update<NF><<<tile_grid(F, Ny + 1, Nx + 1), kTileThreads, bytes, s>>>(
-      m, F, Ny, Nx, K, in, dt, hord_mt, d2dt, vtxdt, use_vtx, cp_air, u_new,
-      v_new);
+  wind_update<NF, Blend>
+      <<<tile_grid(F, Ny + 1, Nx + 1), kTileThreads, bytes, s>>>(
+          m, F, Ny, Nx, K, in, dt, hord_mt, d2dt, vtxdt, use_vtx, cp_air,
+          u_new, v_new);
   return cudaGetLastError();
+}
+
+template <int NF>
+cudaError_t launch_wind_form(const Metrics& m, int F, int Ny, int Nx, int K,
+                             const WindIn& in, float dt, int hord_mt,
+                             float d2dt, float vtxdt, int use_vtx,
+                             float cp_air, float* u_new, float* v_new,
+                             cudaStream_t s) {
+  return in.div_c == nullptr
+             ? launch_wind_update<NF, true>(m, F, Ny, Nx, K, in, dt, hord_mt,
+                                            d2dt, vtxdt, use_vtx, cp_air,
+                                            u_new, v_new, s)
+             : launch_wind_update<NF, false>(m, F, Ny, Nx, K, in, dt,
+                                             hord_mt, d2dt, vtxdt, use_vtx,
+                                             cp_air, u_new, v_new, s);
 }
 
 }  // namespace
@@ -388,17 +530,17 @@ cudaError_t launch_wind_update(const Metrics& m, int F, int Ny, int Nx, int K,
 // pu [F, Ny+1, Nx, K], pv [F, Ny, Nx+1, K], uct [F, Ny, Nx+1, K], vct
 // [F, Ny+1, Nx, K]; delp_f, pt_f (the refilled post-transport state) and
 // vort [F, Ny, Nx, K]; div_c [F, Ny+1, Nx+1, K]: the exchange-form damping
-// divergence, or with blend != 0 scratch the blend stage fills.  pprime,
-// phiprime, rho1 [F, Ny, Nx, K]: the nonhydrostatic fields, all three null
-// in hydrostatic mode.  d2dt = d2_bg / dt and vtxdt = vtx_damp / dt, as
-// the plain version rounds them; use_vtx is vtx_damp > 0.  Scratch: pkz,
-// phi [F, Ny, Nx, K].  Outputs u [F, Ny+1, Nx, K], v [F, Ny, Nx+1, K].
+// divergence, or null for the blend form, which the kernel forms itself.
+// pprime, phiprime, rho1 [F, Ny, Nx, K]: the nonhydrostatic fields, all
+// three null in hydrostatic mode.  d2dt = d2_bg / dt and vtxdt = vtx_damp /
+// dt, as the plain version rounds them; use_vtx is vtx_damp > 0.  Scratch:
+// pkz, phi [F, Ny, Nx, K].  Outputs u [F, Ny+1, Nx, K], v [F, Ny, Nx+1, K].
 // Returns the CUDA error of the first failed launch, 0 when all launched.
 extern "C" int dsw_wind_f32(const void* metrics, int F, int Ny, int Nx, int K,
                             const void* pu, const void* pv, const void* uct,
                             const void* vct, const void* delp_f,
                             const void* pt_f, const void* vort,
-                            void* div_c, int blend, const void* pprime,
+                            const void* div_c, const void* pprime,
                             const void* phiprime, const void* rho1,
                             float ptop, float p00,
                             float kappa, float cp_air, float dt, int hord_mt,
@@ -418,23 +560,15 @@ extern "C" int dsw_wind_f32(const void* metrics, int F, int Ny, int Nx, int K,
   err = launch_hydro(m, F, Ny, Nx, K, cf(delp_f), cf(pt_f), ptop, p00,
                      kappa, cp_air, pkz_w, phi_w, s);
   if (err != cudaSuccess) return (int)err;
-  if (blend) {
-    const long long ncorner = (long long)F * (Ny + 1) * (Nx + 1) * K;
-    blend_divergence<<<blocks_for(ncorner), kThreads, 0, s>>>(
-        m, F, Ny, Nx, K, cf(pu), cf(pv), cf(uct), cf(vct),
-        static_cast<float*>(div_c));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
   const WindIn in = {cf(pu), cf(pv), cf(uct), cf(vct), cf(pt_f),
                      pkz_w, phi_w, cf(vort), cf(div_c), cf(pprime),
                      cf(phiprime), cf(rho1)};
   float* u_w = static_cast<float*>(u_new);
   float* v_w = static_cast<float*>(v_new);
   err = in.pp != nullptr
-            ? launch_wind_update<6>(m, F, Ny, Nx, K, in, dt, hord_mt, d2dt,
-                                    vtxdt, use_vtx, cp_air, u_w, v_w, s)
-            : launch_wind_update<3>(m, F, Ny, Nx, K, in, dt, hord_mt, d2dt,
-                                    vtxdt, use_vtx, cp_air, u_w, v_w, s);
+            ? launch_wind_form<6>(m, F, Ny, Nx, K, in, dt, hord_mt, d2dt,
+                                  vtxdt, use_vtx, cp_air, u_w, v_w, s)
+            : launch_wind_form<3>(m, F, Ny, Nx, K, in, dt, hord_mt, d2dt,
+                                  vtxdt, use_vtx, cp_air, u_w, v_w, s);
   return (int)err;
 }

@@ -335,9 +335,9 @@ def dsw_wind(pu, pv, uct, vct, delp_f, pt_f, vort, div_c, m: PaddedMetrics,
              vtx_damp: float = 0.0, delz_f=None):
     """Column integral of the refilled state and the D-grid wind update
     (sw_pallas.py k4) -> padded (u_new, v_new).  div_c: the exchange-form
-    damping divergence [F, Ny+1, Nx+1, K], or None for the blend form: a
-    stage of the kernel then computes the dual/cell blend from pu, pv,
-    uct and vct.  delz_f: the refilled delz of the nonhydrostatic substep;
+    damping divergence [F, Ny+1, Nx+1, K], or None for the blend form: the
+    kernel's tile then forms the dual/cell blend from pu, pv, uct and vct
+    at each corner.  delz_f: the refilled delz of the nonhydrostatic substep;
     dsw_nh_pert then runs first and the PGF takes its p', phi' and rho."""
     dev = _device("dsw_wind: delp_f", delp_f)
     if dev.type == "cpu":
@@ -358,15 +358,14 @@ def dsw_wind(pu, pv, uct, vct, delp_f, pt_f, vort, div_c, m: PaddedMetrics,
     # nh_t stays referenced until the launch below is enqueued
     nh_t = () if delz_f is None else dsw_nh_pert(delp_f, pt_f, delz_f, ptop)
     nh = _ptrs(*nh_t) if nh_t else [None] * 3
-    div = div_c if div_c is not None else e(cn)
+    div = None if div_c is None else div_c.data_ptr()
     pkz, phi, u_new, v_new = e(c), e(c), e(yi), e(xi)
-    _launch("dsw_wind", "Piiii" + "P" * 8 + "i" + "PPP" + "ffff" + "fiffi"
+    _launch("dsw_wind", "Piiii" + "P" * 8 + "PPP" + "ffff" + "fiffi"
             + "PPPP", dev,
             [ctypes.addressof(ms), F, Ny, Nx, K,
-             *_ptrs(pu, pv, uct, vct, delp_f, pt_f, vort, div),
-             int(div_c is None), *nh, ptop, P00, KAPPA, CP_AIR, dt, hord_mt,
-             d2_bg / dt, vtx_damp / dt, int(vtx_damp > 0.0),
-             *_ptrs(pkz, phi, u_new, v_new)])
+             *_ptrs(pu, pv, uct, vct, delp_f, pt_f, vort), div, *nh, ptop,
+             P00, KAPPA, CP_AIR, dt, hord_mt, d2_bg / dt, vtx_damp / dt,
+             int(vtx_damp > 0.0), *_ptrs(pkz, phi, u_new, v_new)])
     dsw_wind.launches += 1
     return u_new, v_new
 

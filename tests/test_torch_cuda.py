@@ -195,13 +195,30 @@ def _model_args(model, dev):
     return args
 
 
-def _synthetic_args(case, F, Ny, Nx, K, seed, dev):
+def _blend_mask(mask, F, Ny, Nx):
+    """div_blend [F, Ny+1, Nx+1, 1] of a BLEND_MASKS entry other than
+    "random": every corner in the cell form ("cell"), none ("dual"), or
+    the corners less than w from a face edge ("band<w>"), as
+    padded_metrics marks the band along the edges."""
+    if mask == "cell":
+        return np.ones((F, Ny + 1, Nx + 1, 1), np.float32)
+    if mask == "dual":
+        return np.zeros((F, Ny + 1, Nx + 1, 1), np.float32)
+    w = int(mask.removeprefix("band"))
+    j = np.arange(Ny + 1)[:, None]
+    i = np.arange(Nx + 1)[None, :]
+    d = np.minimum(np.minimum(j, i), np.minimum(Ny - j, Nx - i))
+    return np.broadcast_to((d < w).astype(np.float32)[None, ..., None],
+                           (F, Ny + 1, Nx + 1, 1)).copy()
+
+
+def _synthetic_args(case, F, Ny, Nx, K, seed, dev, mask="random"):
     """Random, well-conditioned arguments of a kernel check on a face of
     Ny x Nx padded cells (Ny != Nx: every extent is exercised): metrics
     near a unit grid, Courant numbers below 0.5, a blend mask set on about
-    half the corners, and a smooth terrain phis of ~2e4 m2/s2 that differs
-    along faces, rows and columns (a transposed or shifted index of the
-    column stages shows)."""
+    half the corners (or the mask `mask`, _blend_mask), and a smooth
+    terrain phis of ~2e4 m2/s2 that differs along faces, rows and columns
+    (a transposed or shifted index of the column stages shows)."""
     name, _, form = case.partition(" ")
     rng = np.random.default_rng(seed)
     u = lambda *shape: rng.uniform(-1.0, 1.0, shape)
@@ -223,6 +240,8 @@ def _synthetic_args(case, F, Ny, Nx, K, seed, dev):
                        )[..., None]
         elif f == "div_blend":
             mets[f] = (rng.random(shape) < 0.5).astype(np.float32)
+            if mask != "random":
+                mets[f] = _blend_mask(mask, F, Ny, Nx)
         elif f in small:
             mets[f] = small[f] * u(*shape)
         else:
@@ -305,8 +324,9 @@ def test_dsw_kernel_matches_plain_non_square(cuda, case):
 # and 72.
 TILE_FACES = [(2, 10, 13), (1, 15, 7), (1, 4, 5)]
 TILE_CASES = ["dsw_csw2", "dsw_wind", "dsw_wind blend", "dsw_wind nh",
-              "dsw_csw1", "dsw_transport", "dsw_transport nh",
-              "dsw_tracer_acc", "dsw_tracer", "dsw_nh_pert"]
+              "dsw_wind nh+blend", "dsw_csw1", "dsw_transport",
+              "dsw_transport nh", "dsw_tracer_acc", "dsw_tracer",
+              "dsw_nh_pert"]
 
 
 def _equal_to_plain(case, a):
@@ -333,6 +353,27 @@ def test_dsw_tile_edges_match_plain(cuda, case, face, K):
     """The tiled kernels equal their plain versions in every element, also
     at the ragged edges of the tiles."""
     _equal_to_plain(case, _synthetic_args(case, *face, K, seed=7, dev=cuda))
+
+
+# The blend form of dsw_wind forms each corner's damping divergence in its
+# tile: the dual contour of pu/pv or, where div_blend is set, the
+# interpolated cell divergence of uct/vct, the latter behind a barrier that
+# only blocks with a cell corner take.  Every corner in one form, and bands
+# along the face edges 2 to 10 corners wide, whose inner borders cross the
+# 8 x 8 tile edges; on a face whose last row and column of tiles hold only
+# the corners Ny and Nx (16 x 24), and on one whose tiles are ragged.
+BLEND_MASKS = ["cell", "dual", "band2", "band3", "band5", "band10"]
+BLEND_FACES = [(1, 16, 24), (2, 27, 20)]
+
+
+@pytest.mark.parametrize("K", [8, 33, 72])
+@pytest.mark.parametrize("face", BLEND_FACES,
+                         ids=["x".join(map(str, f)) for f in BLEND_FACES])
+@pytest.mark.parametrize("mask", BLEND_MASKS)
+@pytest.mark.parametrize("case", ["dsw_wind blend", "dsw_wind nh+blend"])
+def test_dsw_wind_blend_masks_match_plain(cuda, case, mask, face, K):
+    _equal_to_plain(case, _synthetic_args(case, *face, K, seed=13, dev=cuda,
+                                          mask=mask))
 
 
 # The column stages (hydro_columns of dsw_csw2 and dsw_wind, nh_columns of
@@ -653,6 +694,53 @@ def test_pointwise_kernel_unaligned_inputs(cuda, name, ncol, K):
     got = _equals_plain(name, moved, args)
     for g, a in zip(got, _tensors(gate.WRAPPERS[name](*args))):
         assert torch.equal(g, a)
+
+
+# aer_activation's smax sits on a clamp for every w <= 0 and every w at or
+# above 21.6 (0.01 w^0.75 >= 0.1), and a warp whose points all do takes
+# the block's two clamp fractions instead of the powf, logf and erff: w all
+# on the lower clamp (zeros of both signs among them), all above the upper
+# one, clamps and free points mixed within each warp, and runs of 32 and 48
+# clamped points (whole warps, and warps half of each kind), at flat sizes
+# that end inside a block's run of points and on views 4 bytes off a
+# 16-byte boundary; 14,564 x 72 takes the form of four points a thread.
+AER_W = ["lower", "upper", "mixed", "runs"]
+
+
+def _aer_w(form, w):
+    rng = np.random.default_rng(17)
+    n = w.numel()
+    if form == "lower":
+        x = -w.cpu().numpy()
+        x.reshape(-1)[::7] = 0.0
+        x.reshape(-1)[3::7] = -0.0
+    elif form == "upper":
+        x = w.cpu().numpy() + 21.6
+    elif form == "mixed":
+        x = rng.choice(np.array([-1.0, -0.0, 0.0, 1e-5, 0.5, 21.5, 21.6,
+                                 25.0, 100.0], np.float32), n)
+    else:
+        e = np.arange(n)
+        x = np.where((e % 64 < 32) | (e % 96 < 48), -1.0,
+                     w.cpu().numpy().reshape(-1))
+    return torch.as_tensor(np.asarray(x, np.float32).reshape(w.shape),
+                           device=w.device)
+
+
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "off4"])
+@pytest.mark.parametrize("ncol,K", [(1, 1), (3, 33), (257, 3), (1000, 32),
+                                    (2049, 72), (14564, 72)])
+@pytest.mark.parametrize("form", AER_W)
+def test_aer_activation_clamps_equal_plain(cuda, form, ncol, K, offset):
+    d = _sounding(ncol, K, 6000 + K + ncol, cuda)
+    d["w"] = _aer_w(form, d["w"])
+    from geosongpu_tpu_torch.physics import standalone_gate as gate
+
+    args = gate.arguments("AerActivation", d)
+    if offset:
+        args = tuple(_off_by_four_bytes(a) if isinstance(a, torch.Tensor)
+                     else a for a in args)
+    _equals_plain("AerActivation", args)
 
 
 def _tracer_array(lead, K, nq, seed, dev):
