@@ -24,6 +24,10 @@ each __global__ stage it launches and of all the call's device work; a
 pointwise kernel also with its bound and the device time's share of it.
 Run it from copies of two trees in one call to compare their kernels;
 `--stages columns` runs the column view alone.
+
+    python3 chip_smoke.py --harness
+
+runs phases 1, 2 and 13 alone.
 Without arguments, the phases:
 
 1. device: the card's name and power limit (nvidia-smi), the toolchain,
@@ -128,7 +132,25 @@ Without arguments, the phases:
    (hws.xprof_util.device_busy) equals the profiler's device-event total
    within 2%; and the device-bound fused c192-L72 preset's median step
    with the sampler (a sample after each step) within 2% of its median
-   without.
+   without;
+13. the host bridge, checkpoint and jobs on the main path's preset
+   (BRIDGE_PRESET, bench.py's fused c48-L72): the bridge of
+   interop/def_dycore.json generated into a temporary directory, the
+   port's DycoreHook on the card, and interop/dycore_host.c compiled with
+   gcc against the generated C source and libpython, stepping the model 3
+   times from Fortran-order files as a Fortran host would; the 14 state
+   fields equal 3 direct steps in this process bit for bit, the host
+   process's launches exactly 3 x PATHS' per step (18 each of the four
+   substep kernels, 6 of dsw_tracer_acc, 9 of remap_banded), validate_run
+   0 on an equal and 1 on a changed copy of u, the bridged and the direct
+   ms per step printed; then 2 steps, a checkpoint saved and restored into
+   a fresh model and 2 steps, equal bit for bit to 4 straight steps, with
+   exact launches, the checkpoint's bytes and the save and restore
+   seconds; then ci-heartbeat, ci-clean and ci-info on the card through
+   dispatch (ci_info.devices names the card), a LocalBackend job of
+   GPUJobConfig.one_gpu() with the hardware sampler around `cli run` of the
+   preset (COMPLETED; its dump holds samples with power > 0 and the card's
+   UUID), and a job whose payload exits 1 (FAILED).
 
 Phases 3 to 5 print the median time of 20 calls (10 at c192), kernel and
 plain.  The second-to-last line is the kernels JSON object, the last line
@@ -338,6 +360,10 @@ CI_BENCHMARKS = {
 CI_VALIDATION = "held_suarez_c192"   # eager c192-L72 on the one card
 CI_STANDALONE = "physics_standalone_all"
 CI_CLIMATOLOGY = "hs_climatology_smoke"   # eager c12-L16, 4 + 6 days
+# phase 13, the host bridge, checkpoint and jobs: the main path's preset
+# (bench.py's configuration), stepped BRIDGE_STEPS times through the C host
+BRIDGE_PRESET = "held_suarez_c48_l72_fused"
+BRIDGE_STEPS = 3
 
 
 def fail(msg: str) -> None:
@@ -872,6 +898,14 @@ def run_gate_path(torch, gate, counters, dev, card):
     return launches
 
 
+def check_launches_of(label, launches, per_step, steps):
+    """Each kernel launched exactly per_step[kernel] x steps times."""
+    for k, got in launches.items():
+        if got != per_step.get(k, 0) * steps:
+            fail(f"{label}: {k} launched {got} times in {steps} steps, "
+                 f"expected {per_step.get(k, 0) * steps}")
+
+
 def run_preset(torch, np, model, counters, label, card, steps, per_step):
     """Rest state (not for JW06, whose unperturbed state is a balanced
     flow), then 3 + `steps` steps with every count set to 0 just before and
@@ -900,10 +934,7 @@ def run_preset(torch, np, model, counters, label, card, steps, per_step):
     launches = {k: fn.launches for k, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     n = 3 + steps
-    for k, got in launches.items():
-        if got != per_step.get(k, 0) * n:
-            fail(f"{label}: {k} launched {got} times in {n} steps, "
-                 f"expected {per_step.get(k, 0) * n}")
+    check_launches_of(label, launches, per_step, n)
     bad = [k for k, a in state_to_numpy(s).items() if not np.isfinite(a).all()]
     if bad:
         fail(f"{label}: non-finite fields after {n} steps: {bad}")
@@ -1131,11 +1162,7 @@ def run_jw_validation(torch, counters, card):
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
-    per_step = PATHS[JW_PRESET][2]
-    for k, got in launches.items():
-        if got != per_step.get(k, 0) * steps:
-            fail(f"{JW_EXPERIMENT}: {k} launched {got} times in {steps} "
-                 f"steps, expected {per_step.get(k, 0) * steps}")
+    check_launches_of(JW_EXPERIMENT, launches, PATHS[JW_PRESET][2], steps)
     mins = env.get("jw.ps_min_by_day")
     ref = JW_REFERENCE["ps_min"]
     print(f"[jw] {JW_EXPERIMENT} Validation through dispatch: {steps} steps "
@@ -1551,6 +1578,239 @@ def check_sampling_cost(torch, model, dev, card, steps=10):
         fail(f"hws: sampling moved the c192 step {off:.2f} -> {on:.2f} ms")
 
 
+def run_bridge(torch, np, build_model_for, preset, card):
+    """Phase 13a: the bridge of interop/def_dycore.json generated into a
+    temporary directory, the port's DycoreHook on the card, and
+    interop/dycore_host.c compiled with gcc against the generated C source
+    and libpython.  The host reads the initial state from Fortran-order
+    files, calls bridge_init, init, BRIDGE_STEPS x run, validate_run on an
+    equal and a changed copy of u, finalize, and writes the fields; they
+    must equal BRIDGE_STEPS direct steps of the same model in this process
+    bit for bit, and the host process's launches (the hook's hook.json)
+    must be exactly PATHS' per step x BRIDGE_STEPS.  Prints the bridged and
+    the direct ms per step, and the hook's own split of each run: the
+    copies onto the card, the step, the copies back."""
+    import re
+    import tempfile
+
+    from geosongpu_tpu_torch.cli import PRESETS
+    from geosongpu_tpu_torch.core.state import state_to_numpy
+    from geosongpu_tpu_torch.interop import dycore
+    from geosongpu_tpu_torch.interop.generator import Bridge
+
+    cfg = PRESETS[preset]
+    dev = torch.device("cuda")
+    model = build_model_for(preset)(cfg, dev)
+    s = model.init(perturb=1e-3, seed=0)
+    start = state_to_numpy(s)
+    direct_ms = []
+    for _ in range(BRIDGE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = model.step(s)
+        torch.cuda.synchronize()
+        direct_ms.append((time.perf_counter() - t0) * 1e3)
+    want = state_to_numpy(s)
+    ak, bk = model.ak, model.bk
+    del model, s
+    with tempfile.TemporaryDirectory(prefix="bridge_") as td:
+        Bridge.from_file(os.path.join(os.path.dirname(dycore.__file__),
+                                      "def_dycore.json")).write(td)
+        dycore.write_hook(td, f'DycoreHook("{preset}", "cuda", HERE)')
+        t0 = time.perf_counter()
+        host = dycore.build_host(td)
+        gcc_s = time.perf_counter() - t0
+        data = os.path.join(td, "data")
+        dycore.write_inputs(data, start, ak, bk)
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [host, "run", td, data, str(cfg.npx), str(cfg.npz),
+             str(cfg.ntracers), str(BRIDGE_STEPS), repr(cfg.dt),
+             repr(cfg.ptop)], capture_output=True, text=True, cwd=td,
+            env=dycore.host_env(td), timeout=600)
+        host_s = time.perf_counter() - t0
+        if r.returncode != 0 or "HOST_OK" not in r.stdout:
+            fail(f"bridge host: rc {r.returncode}\n{r.stdout[-3000:]}\n"
+                 f"{r.stderr[-5000:]}")
+        bridged_ms = [float(m) for m in
+                      re.findall(r"^run \d+: ([0-9.]+) ms$", r.stdout, re.M)]
+        if len(bridged_ms) != BRIDGE_STEPS:
+            fail(f"bridge host: {len(bridged_ms)} timed runs\n{r.stdout}")
+        got = dycore.read_outputs(data, {k: v.shape
+                                         for k, v in want.items()})
+        with open(os.path.join(td, "hook.json")) as f:
+            hook = json.load(f)
+        launches = hook["launches"]
+    for name in dycore.STATE_FIELDS:
+        if not np.array_equal(got[name], want[name]):
+            diff = np.abs(got[name].astype(np.float64) - want[name])
+            fail(f"bridge: {name} differs from the direct steps by up to "
+                 f"{float(np.nanmax(diff)):.3e} "
+                 f"({int((got[name] != want[name]).sum())} elements)")
+    check_launches_of("bridge host", launches, PATHS[preset][2],
+                      BRIDGE_STEPS)
+    tail = slice(1, None)     # the first run includes the library's load
+    print(f"[bridge] {preset} c{cfg.npx}-L{cfg.npz} through the generated "
+          f"C bridge (gcc {gcc_s:.2f} s; host process {host_s:.1f} s all "
+          f"told): {BRIDGE_STEPS} runs "
+          + ", ".join(f"{m:.2f}" for m in bridged_ms)
+          + " ms wall, host<->card copies included; direct steps "
+          + ", ".join(f"{m:.2f}" for m in direct_ms)
+          + f" ms; mean of steps 2-{BRIDGE_STEPS}: bridged "
+          f"{statistics.fmean(bridged_ms[tail]):.2f}, direct "
+          f"{statistics.fmean(direct_ms[tail]):.2f} ms/step; the 14 state "
+          f"fields equal bit for bit; validate_run 0 on an equal and 1 on "
+          f"a changed copy of u; launches in the host "
+          + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+          + f" ({card})")
+    print("[bridge] the hook's split of each run, ms: " + "; ".join(
+        f"{part} " + ", ".join(f"{m:.2f}" for m in ms)
+        for part, ms in hook["ms"].items()) + f" ({card})")
+
+
+def run_checkpoint(torch, np, counters, build_model_for, preset, card):
+    """Phase 13b: path A, 4 steps straight; path B, 2 steps, save, restore
+    onto the card into a freshly built model, 2 steps.  Every field equal
+    bit for bit, each path's launches exactly PATHS' per step x 4 (counts
+    set to 0 just before each path and read just after).  Prints the
+    checkpoint's bytes and the save and restore seconds."""
+    import tempfile
+
+    from geosongpu_tpu_torch.cli import PRESETS
+    from geosongpu_tpu_torch.core.state import state_to_numpy
+    from geosongpu_tpu_torch.harness import checkpoint
+
+    cfg = PRESETS[preset]
+    dev = torch.device("cuda")
+    model = build_model_for(preset)(cfg, dev)
+    s0 = model.init(perturb=1e-3, seed=0)
+    per_step = PATHS[preset][2]
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    reset()
+    straight = state_to_numpy(model.run(s0, 4))
+    torch.cuda.synchronize()
+    check_launches_of("checkpoint path A", {k: fn.launches for k, fn in
+                                            counters.items()}, per_step, 4)
+    with tempfile.TemporaryDirectory(prefix="ckpt_") as td:
+        reset()
+        s2 = model.run(s0, 2)
+        t0 = time.perf_counter()
+        path = checkpoint.save(td, s2, cfg, step=2)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(dp, f))
+                     for dp, _, fs in os.walk(td) for f in fs)
+        del model, s2
+        fresh = build_model_for(preset)(cfg, dev)
+        t0 = time.perf_counter()
+        restored, step = checkpoint.restore(td, dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        resumed = state_to_numpy(fresh.run(restored, 2))
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+    check_launches_of("checkpoint path B", launches, per_step, 4)
+    if step != 2 or os.path.basename(path) != "ckpt_00000002":
+        fail(f"checkpoint: restored step {step} from {path}")
+    for name, a in straight.items():
+        if not np.array_equal(resumed[name], a):
+            fail(f"checkpoint: {name} after save, restore and 2 steps is "
+                 f"not the straight run's ({int((resumed[name] != a).sum())}"
+                 f" elements differ)")
+    print(f"[checkpoint] {preset} c{cfg.npx}-L{cfg.npz}: 2 steps, save, "
+          f"restore into a fresh model, 2 steps equal 4 straight steps bit "
+          f"for bit (all 14 fields, mfx and mfy included); checkpoint "
+          f"{nbytes} bytes, save {save_s:.3f} s, restore {restore_s:.3f} s "
+          f"onto the card; launches of each path "
+          + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+          + f" ({card})")
+
+
+def run_harness_jobs(torch, np, card, name):
+    """Phase 13c: ci-heartbeat, ci-clean (on a workspace with a stale file)
+    and ci-info on cuda through the port's dispatch, whose ci_info.devices
+    must name the card; a LocalBackend job from GPUJobConfig.one_gpu() with
+    hardware_sampling around `cli run` of BRIDGE_PRESET on the card, which must
+    end COMPLETED with a dump of samples with power > 0 and the card's
+    UUID; and a job whose payload exits 1, which must end FAILED."""
+    import tempfile
+
+    from geosongpu_tpu_torch.harness.jobqueue import (JobState, LocalBackend,
+                                                      wait_for_job)
+    from geosongpu_tpu_torch.harness.launcher import GPUJobConfig
+    from geosongpu_tpu_torch.harness.task import dispatch
+    from geosongpu_tpu_torch.hws.analysis import load_data
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="jobs_") as td:
+        ws, art = os.path.join(td, "ws"), os.path.join(td, "art")
+        kw = dict(artifact_directory=art, workspace=ws, device="cuda")
+        dispatch("ci-heartbeat", "All", **kw)
+        if not os.path.isfile(os.path.join(art, "ci_metadata")):
+            fail("ci-heartbeat: no ci_metadata in the artifact directory")
+        with open(os.path.join(ws, "stale"), "w") as f:
+            f.write("x")
+        dispatch("ci-clean", "All", **kw)
+        if os.listdir(ws) != ["ci_metadata"]:
+            fail(f"ci-clean left {os.listdir(ws)}")
+        devices = dispatch("ci-info", "All", **kw).get("ci_info.devices")
+        if name not in devices:
+            fail(f"ci-info: {devices!r} does not name the card {name!r}")
+
+        uuid = subprocess.run(
+            ["nvidia-smi", "--query-gpu=uuid", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60).stdout.split()[0]
+        be = LocalBackend(td)
+        job = GPUJobConfig(hosts=1, gpus_per_host=1,
+                           env={"PYTHONPATH": root}, hardware_sampling=True)
+        script = job.wrapper_script(
+            [f"python -m geosongpu_tpu_torch.cli run --preset "
+             f"{BRIDGE_PRESET} --steps 10 --device cuda"], name="hs_run",
+            wd=td)
+        t0 = time.perf_counter()
+        h = be.submit([f"bash {script.path}"], "hs_job")
+        state = wait_for_job(be, h, poll_s=0.5, timeout_s=400)
+        job_s = time.perf_counter() - t0
+        with open(os.path.join(td, "hs_job.log")) as f:
+            log = f.read()
+        if state != JobState.COMPLETED:
+            fail(f"the sampled job ended {state}:\n{log[-4000:]}")
+        d = load_data(os.path.join(td, "hws_dump.npz"))
+        n = len(d["t_s"])
+        power = float(np.max(d["tpu_psu"])) if n else 0.0
+        if n < 1 or not power > 0.0 or str(d["gpu_uuid"]) != uuid:
+            fail(f"the sampled job's dump: {n} samples, max power {power} W,"
+                 f" uuid {d['gpu_uuid']} (card {uuid})")
+        line = [x for x in log.splitlines() if "ms/step" in x]
+
+        fail_job = GPUJobConfig.one_gpu().wrapper_script(
+            ["python -c 'import sys; sys.exit(1)'"], name="bad_run", wd=td)
+        h = be.submit([f"bash {fail_job.path}"], "bad_job")
+        bad = wait_for_job(be, h, poll_s=0.2, timeout_s=120)
+        if bad != JobState.FAILED:
+            fail(f"the job whose payload exits 1 ended {bad}")
+    print(f"[jobs] ci-heartbeat, ci-clean and ci-info through dispatch "
+          f"passed; ci_info.devices {devices!r}")
+    print(f"[jobs] LocalBackend, GPUJobConfig.one_gpu() with the sampler: "
+          f"`cli run --preset {BRIDGE_PRESET} --steps 10` {state} in "
+          f"{job_s:.1f} s; {line[-1].strip() if line else 'no step line'}; "
+          f"dump of {n} samples, max power {power:.2f} W, mean "
+          f"{float(np.mean(d['tpu_psu'])):.2f} W, uuid {uuid}; the job "
+          f"exiting 1 ended {bad} ({card})")
+
+
+def run_phase_13(torch, np, counters, build_model_for, card, name):
+    """Phase 13: the host bridge, checkpoint and resume, the jobs."""
+    run_bridge(torch, np, build_model_for, BRIDGE_PRESET, card)
+    torch.cuda.empty_cache()
+    run_checkpoint(torch, np, counters, build_model_for, BRIDGE_PRESET, card)
+    torch.cuda.empty_cache()
+    run_harness_jobs(torch, np, card, name)
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1607,6 +1867,9 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s (nvcc {lib.build_seconds:.2f} s)"
           f" -> {lib.path.parent.name}/{lib.path.name}")
     print_build_log(lib.build_log)
+    if "--harness" in sys.argv[1:]:
+        run_phase_13(torch, np, counters, build_model_for, card, name)
+        return 0
     if "--stages" in sys.argv[1:]:
         if "columns" not in sys.argv[1:]:
             for pname, (form, names, steps) in STAGE_KERNELS.items():
@@ -1763,6 +2026,9 @@ def main() -> int:
     check_sampling_cost(torch, build_model_for("held_suarez_c192_l72_fused")(
         PRESETS["held_suarez_c192_l72_fused"], dev), dev, card)
     torch.cuda.empty_cache()
+
+    # ---- 13. the host bridge, checkpoint and resume, jobs ----------------
+    run_phase_13(torch, np, counters, build_model_for, card, name)
 
     # each entry: (key of results, kernel, path whose launches it reports)
     entries = [(k, k, "fused") for k in list(KERNELS)[:6]] + [

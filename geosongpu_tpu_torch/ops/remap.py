@@ -4,6 +4,8 @@ Arrays: [..., K] layer means, [..., K+1] interfaces, top -> surface.
 `remap_fields_banded` is the plain PyTorch version of the CUDA kernel in
 ops/kernels/remap.py (csrc/remap_banded.cu): the kernel computes exactly
 this function, and the CPU path and the on-card comparison use it.
+`lagrangian_to_eulerian` is the full remap step of cell-centred fields on
+`remap_field`.
 """
 from __future__ import annotations
 
@@ -130,3 +132,31 @@ def remap_field_banded(q: torch.Tensor, pe1: torch.Tensor, pe2: torch.Tensor,
                        kord: int = 8, band: int = 10) -> torch.Tensor:
     """Single-field form of remap_fields_banded."""
     return remap_fields_banded([q], pe1, pe2, kord, band)[0]
+
+
+def lagrangian_to_eulerian(delp, pt, u_cell, v_cell, q, ak, bk, ptop,
+                           kord: int = 8):
+    """Full remap step on cell-centred fields [..., K] (+ tracers with a
+    trailing tracer axis, or None): the target coordinate ak + bk ps from
+    the surface pressure of delp, and every field remapped onto it with
+    remap_field.  ak, bk: [K+1] tensors on the fields' device.
+
+    Returns (delp_new, pt_new, u_new, v_new, q_new, ps, pe2).
+    """
+    from .vertical import interfaces_from_delp
+
+    pe1 = interfaces_from_delp(delp, ptop)
+    ps = pe1[..., -1]
+    pe2 = ak + bk * ps[..., None]
+    delp_new = pe2[..., 1:] - pe2[..., :-1]
+
+    pt_new = remap_field(pt, pe1, pe2, kord)
+    u_new = remap_field(u_cell, pe1, pe2, kord)
+    v_new = remap_field(v_cell, pe1, pe2, kord)
+    if q is not None:
+        # tracers carry a trailing tracer axis [..., K, T]
+        q_new = torch.stack([remap_field(q[..., t], pe1, pe2, kord)
+                             for t in range(q.shape[-1])], dim=-1)
+    else:
+        q_new = None
+    return delp_new, pt_new, u_new, v_new, q_new, ps, pe2

@@ -903,3 +903,45 @@ def test_busy_rises_under_load_and_falls_when_idle(cuda):
     assert len(load) >= 5
     assert load.mean() > before.mean() and load.mean() > after.mean()
     assert load.max() > 0.5 and after.min() < 0.5
+
+
+def test_checkpoint_resume_on_card_is_bitwise(cuda, tmp_path):
+    """The fused c8-L8 model on the card: 4 steps straight equal 2 steps,
+    save, restore onto the card into a freshly built model and 2 more,
+    bit for bit."""
+    from geosongpu_tpu_torch.harness import checkpoint
+
+    cfg = DycoreConfig(npx=8, npz=8, dt=600.0, n_split=2, pallas_dycore=True)
+    model = build_model(cfg, cuda)
+    s0 = model.init(perturb=0.01)
+    straight = state_to_numpy(model.run(s0, 4))
+    checkpoint.save(str(tmp_path), model.run(s0, 2), cfg, step=2)
+    restored, step = checkpoint.restore(str(tmp_path), cuda)
+    assert step == 2 and restored.u.device.type == "cuda"
+    resumed = state_to_numpy(build_model(cfg, cuda).run(restored, 2))
+    for name, a in straight.items():
+        np.testing.assert_array_equal(resumed[name], a, err_msg=name)
+
+
+def test_bridge_layout_check_with_the_hook_on_card(cuda, tmp_path):
+    """The coordinate-stamp case of tests/test_torch_interop.py with the
+    hook's tensors on the card: every array element checked in the port's
+    layout on the card and written back negated through the card."""
+    import os
+    import shutil
+    import subprocess
+
+    from geosongpu_tpu_torch.interop import dycore
+    from geosongpu_tpu_torch.interop.generator import Bridge
+
+    if shutil.which("gcc") is None:
+        pytest.skip("no gcc")
+    d = str(tmp_path)
+    Bridge.from_file(os.path.join(os.path.dirname(dycore.__file__),
+                                  "def_dycore.json")).write(d)
+    dycore.write_hook(d, 'LayoutCheckHook("cuda")')
+    host = dycore.build_host(d)
+    r = subprocess.run([host, "stamp", d, "7", "6", "3"], capture_output=True,
+                       text=True, cwd=d, env=dycore.host_env(d), timeout=300)
+    assert r.returncode == 0, f"rc={r.returncode}:\n{r.stderr}\n{r.stdout}"
+    assert "HOST_OK" in r.stdout

@@ -324,3 +324,44 @@ def test_the_walk_premise_fails_where_it_should():
     want = tremap.remap_fields_banded(qs, pe1, pe2, band=6)
     got = _run_walk(qs, pe1, pe2, 6, reverse=True)
     assert not all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("ntracers", [0, 2])
+def test_lagrangian_to_eulerian_matches_jax(ntracers):
+    """The full remap step onto the hybrid coordinate of the column's own
+    surface pressure, the port against the JAX function, tracers
+    included (None without)."""
+    from geosongpu_tpu_torch.core.vertical import hybrid_coordinate
+
+    lead, K, ptop = (2, 4, 3), 10, 100.0
+    ak, bk = (a.astype(np.float32) for a in hybrid_coordinate(K, ptop))
+    rng = np.random.default_rng(7 + ntracers)
+    ps = rng.uniform(9.6e4, 1.02e5, lead).astype(np.float32)
+    target = np.diff(ak + bk * ps[..., None], axis=-1)
+    # a smooth Lagrangian deformation of the target layers
+    k = np.arange(K)
+    wave = 1.0 + 0.2 * np.sin(np.pi * (k + 0.5) / K
+                              + rng.uniform(0, np.pi, lead + (1,)))
+    delp = (target * wave / (wave * target).sum(-1, keepdims=True)
+            * target.sum(-1, keepdims=True)).astype(np.float32)
+    pt, u, v = (rng.uniform(250.0, 320.0, lead + (K,)).astype(np.float32)
+                if i == 0 else
+                rng.standard_normal(lead + (K,)).astype(np.float32) * 10.0
+                for i in range(3))
+    q = (rng.uniform(0.0, 1e-2, lead + (K, ntracers)).astype(np.float32)
+         if ntracers else None)
+    got = tremap.lagrangian_to_eulerian(
+        _t(delp), _t(pt), _t(u), _t(v), None if q is None else _t(q),
+        _t(ak), _t(bk), ptop)
+    want = jremap.lagrangian_to_eulerian(
+        jnp.asarray(delp), jnp.asarray(pt), jnp.asarray(u), jnp.asarray(v),
+        None if q is None else jnp.asarray(q), jnp.asarray(ak),
+        jnp.asarray(bk), ptop)
+    names = ("delp", "pt", "u", "v", "q", "ps", "pe2")
+    for name, g, w in zip(names, got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert tuple(g.shape) == w.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
+                                   atol=ATOL, err_msg=name)
