@@ -150,7 +150,19 @@ Without arguments, the phases:
    dispatch (ci_info.devices names the card), a LocalBackend job of
    GPUJobConfig.one_gpu() with the hardware sampler around `cli run` of the
    preset (COMPLETED; its dump holds samples with power > 0 and the card's
-   UUID), and a job whose payload exits 1 (FAILED).
+   UUID), and a job whose payload exits 1 (FAILED);
+14. the sharded step on stacked ranks (all ranks of a layout in one
+   process on the card): the fused c48-L72 preset on the faces-local
+   (2, 4) layout (48 slots of 24 x 12 blocks) and the face-sharded
+   (6, 2, 2) one, the fused c192-L72 blend form on (6, 1, 1), and the
+   eager c48-L72 with overlap_fills and rim_split on (2, 4); each one step
+   against the single-device step from the JW06 flow (u, v, delp, pt, ps
+   within 1e-5 of max|single|, no floor) and from the perturbed rest
+   start (with omga; winds within 6e-3 m/s), with exact launches and
+   ms/step of both forms; every substep kernel and remap_banded against
+   its plain version on the (2, 4) blocks, with its device time; then
+   held_suarez_c16_sharded on 8 stacked ranks and scaling_bench through
+   dispatch.  `--sharded` runs phases 1, 2 and 14 alone.
 
 Phases 3 to 5 print the median time of 20 calls (10 at c192), kernel and
 plain.  The second-to-last line is the kernels JSON object, the last line
@@ -360,6 +372,25 @@ CI_BENCHMARKS = {
 CI_VALIDATION = "held_suarez_c192"   # eager c192-L72 on the one card
 CI_STANDALONE = "physics_standalone_all"
 CI_CLIMATOLOGY = "hs_climatology_smoke"   # eager c12-L16, 4 + 6 days
+# phase 14, the sharded step on stacked ranks: the main path's preset on
+# the (2, 4), (6, 2, 2) layouts, c192 on (6, 1, 1), the eager form with
+# overlap_fills and rim_split; each step against the single-device step,
+# from the JW06 flow (its jets on the preset's grid and levels) and from
+# the perturbed rest start
+SHARDED_PRESET = "held_suarez_c48_l72_fused"
+SHARDED_EXPERIMENT = "held_suarez_c16_sharded"
+SHARDED_FIELDS = ("u", "v", "delp", "pt", "ps", "omga")
+SHARDED_GATE = 1e-5      # relative to max|single|; winds SLICE_WIND_ATOL
+# from the flow, relative to max|single|, no floor: along a face-edge halo
+# strip the chart resample of the A-grid winds reads one cell past a
+# block's end, clamped there (as in the JAX package's sharded step), and
+# moves u by 1.7e-4 of max|u| in one c48-L72 (2,4) step; gates forced on
+# in every block or dropped D-grid signs move it by 0.15-0.34.
+# omga, a small residual of large terms there, is gated from the rest start
+FLOW_FIELDS = ("u", "v", "delp", "pt", "ps")
+FLOW_GATE = 1e-3
+FORCING_ULP = 4
+SHARDED_REPS = 3
 # phase 13, the host bridge, checkpoint and jobs: the main path's preset
 # (bench.py's configuration), stepped BRIDGE_STEPS times through the C host
 BRIDGE_PRESET = "held_suarez_c48_l72_fused"
@@ -483,14 +514,16 @@ def compare(name, got, want, column_gate):
     return worst_abs, worst_rel
 
 
-def kernel_inputs(torch, np, model, dev, steps=2):
+def kernel_inputs(torch, np, model, dev, steps=2, sharded=None):
     """{kernel name: args} at the model's shapes from a real state: init
     (3 K of pt noise, a tracer 1 + 0.2 U[0,1); JW06: the perturbed
     state), `steps` steps, fill, then
     one substep of plain versions in the model's own mode (damping form,
     nonhydrostatic fields, per-substep tracers); in z_tracer mode
     dsw_tracer_acc takes the substep's winds and mass fluxes accumulated
-    over n_split substeps and split in q_split subcycles."""
+    over n_split substeps and split in q_split subcycles.  sharded: the
+    (place, step) of a sharded stepper: the steps and the substep then run
+    on its stacked blocks, through its context (step.ctx)."""
     from geosongpu_tpu_torch.dycore.fv_dynamics import _use_exchange
     from geosongpu_tpu_torch.dycore.sw import fill_substep
     from geosongpu_tpu_torch.dycore.sw_fused import substep_kernel_args
@@ -500,7 +533,13 @@ def kernel_inputs(torch, np, model, dev, steps=2):
     rng = np.random.default_rng(5)
     st.q = torch.as_tensor((1.0 + 0.2 * rng.random(tuple(st.q.shape)))
                            .astype(np.float32), device=dev)
-    st = model.run(st, steps)
+    if sharded is None:
+        st = model.run(st, steps)
+    else:
+        place, step = sharded
+        ctx, st = step.ctx, place(st)
+        for _ in range(steps):
+            st = step(st)
     dt = cfg.dt / (cfg.k_split * cfg.n_split)
     nonhydro = not cfg.hydrostatic
     s = fill_substep(ctx.ops, st.u, st.v, st.delp, st.pt,
@@ -654,15 +693,17 @@ def column_stages(torch, gate, kcol, kmic, dev, card):
         torch.cuda.empty_cache()
 
 
-def remap_calls(torch, preset, npx, gen, dev):
+def remap_calls(torch, preset, npx, gen, dev, block=None):
     """The three remap calls of a step of `preset` at c`npx`, on a smooth
     Lagrangian displacement (displaced_coordinates): pt and the tracer,
-    then the D-grid winds u and v on their staggered columns.  Yields
-    (label, qs, pe1, pe2)."""
+    then the D-grid winds u and v on their staggered columns.  block: (F,
+    ny, nx) of a sharded step's stacked blocks, in place of 6 faces of
+    npx x npx.  Yields (label, qs, pe1, pe2)."""
     K, band = preset.npz, preset.remap_band
-    for label, lead, nf, scale in (("pt+q", (6, npx, npx), 2, 300.0),
-                                   ("u", (6, npx + 1, npx), 1, 10.0),
-                                   ("v", (6, npx, npx + 1), 1, 10.0)):
+    F, ny, nx = block if block is not None else (6, npx, npx)
+    for label, lead, nf, scale in (("pt+q", (F, ny, nx), 2, 300.0),
+                                   ("u", (F, ny + 1, nx), 1, 10.0),
+                                   ("v", (F, ny, nx + 1), 1, 10.0)):
         pe1, pe2 = displaced_coordinates(torch, lead, K, band, gen, dev)
         qs = [(scale * (1.0 + 0.1 * torch.randn(lead + (K,), generator=gen,
                                                 device=dev))).contiguous()
@@ -670,13 +711,16 @@ def remap_calls(torch, preset, npx, gen, dev):
         yield label, qs, pe1, pe2
 
 
-def check_remap(torch, kremap, plain, preset, npx, gen, dev, card, reps):
-    """Phase 3 at c`npx`: each of a step's three remap calls against the
-    plain version, with its error, median times and bound; returns the
-    step's (max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
+def check_remap(torch, kremap, plain, preset, npx, gen, dev, card, reps,
+                block=None):
+    """Phase 3 at c`npx` (or on stacked blocks, remap_calls): each of a
+    step's three remap calls against the plain version, with its error,
+    median times and bound; returns the step's (max_abs_err, ms, plain_ms,
+    bound_ms, bound_by)."""
     kord, band = preset.kord, preset.remap_band
     max_abs_err, kernel_ms, plain_ms, by = 0.0, 0.0, 0.0, [0.0, 0.0]
-    for label, qs, pe1, pe2 in remap_calls(torch, preset, npx, gen, dev):
+    for label, qs, pe1, pe2 in remap_calls(torch, preset, npx, gen, dev,
+                                           block):
         got = kremap.remap_banded(qs, pe1, pe2, kord, band)
         want = plain(qs, pe1, pe2, kord, band)
         torch.cuda.synchronize()
@@ -1811,6 +1855,268 @@ def run_phase_13(torch, np, counters, build_model_for, card, name):
     run_harness_jobs(torch, np, card, name)
 
 
+def flow_state(model):
+    """The JW06 analytic state (35 m/s jets, their balanced temperature)
+    on the model's grid and levels, over the model's flat terrain: a
+    developed flow, where a wrong exchange moves the winds by far more
+    than the gates allow."""
+    import dataclasses as dc
+
+    from geosongpu_tpu_torch.models.baroclinic_wave import jw_initial_state
+
+    s, _ = jw_initial_state(model.config, model.grid, model.ak, model.bk,
+                            model.device)
+    return dc.replace(s, phis=model.init(perturb=0.0).phis)
+
+
+def sharded_vs_single(torch, np, model, mesh, label, counters, per_step,
+                      card, rest_reference=None):
+    """Phase 14: one step of `model` on all ranks of `mesh` stacked on the
+    card against the single-device step, from two starts.  From the JW06
+    flow, against the model's own single-device step: FLOW_FIELDS within
+    FLOW_GATE of max|single|, no floor; every count set to 0 just
+    before this sharded step and read just after, exact against per_step.
+    From the perturbed rest start, against `rest_reference`'s step
+    (another model's, default the model's own): SHARDED_FIELDS within
+    SHARDED_GATE of max|single|, winds within SLICE_WIND_ATOL.  Returns
+    (launches, (place, step), single ms/step, stacked ms/step), the times
+    from the flow."""
+    from geosongpu_tpu_torch.core.config import MeshConfig
+    from geosongpu_tpu_torch.parallel.subtile import build_mesh_stepper
+
+    place, step, unplace, desc = build_mesh_stepper(
+        model, MeshConfig(**mesh), stacked=True)
+
+    def compare(start, got, want, fields, rel, floor):
+        diffs = []
+        for f in fields:
+            g, w = getattr(got, f), getattr(want, f)
+            if not bool(g.isfinite().all()):
+                fail(f"{label}: non-finite {f} from the {start}")
+            err, scale = float((g - w).abs().max()), float(w.abs().max())
+            limit = max(rel * scale, floor if f in ("u", "v") else 0.0)
+            if not err <= limit:
+                fail(f"{label}: {f} {err:.3e} from the single-device step "
+                     f"from the {start} > {limit:.3e}")
+            diffs.append(f"{f} {err:.3e} ({err / max(scale, 1e-30):.2e} of "
+                         f"max|single|)")
+        return ", ".join(diffs)
+
+    s0 = flow_state(model)
+    want = model.step(s0)
+    placed = place(s0)
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    out = step(placed)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check_launches_of(label, launches, per_step, 1)
+    got = unplace(out)
+    flow = compare("flow", got, want, FLOW_FIELDS, FLOW_GATE, 0.0)
+    omga = float((got.omga - want.omga).abs().max())
+    rest0 = model.init(perturb=1e-3)
+    rest = compare("rest start", unplace(step(place(rest0))),
+                   (rest_reference or model).step(rest0), SHARDED_FIELDS,
+                   SHARDED_GATE, SLICE_WIND_ATOL)
+    ms = []
+    for fn, arg in ((model.step, s0), (step, placed)):
+        fn(arg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SHARDED_REPS):
+            fn(arg)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) / SHARDED_REPS * 1e3)
+    print(f"[sharded] {label}: {desc}; one step against single-device: "
+          f"from the JW06 flow (max|u| {float(want.u.abs().max()):.2f} m/s) "
+          f"max diff {flow}, omga {omga:.3e} (not gated); from the rest "
+          f"start max diff {rest}; launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+          + f"; single-device {ms[0]:.2f} ms/step, all ranks stacked on the "
+          f"one card {ms[1]:.2f} ms/step (not scaling; mean of "
+          f"{SHARDED_REPS}; {card})")
+    return launches, (place, step), ms[0], ms[1]
+
+
+class Placed:
+    """A sharded stepper with the model interface profile_steps uses:
+    init places the model's initial state, step and run the sharded
+    step."""
+
+    def __init__(self, model, place, step):
+        self.model, self.place, self._step = model, place, step
+
+    def init(self, perturb):
+        return self.place(self.model.init(perturb=perturb))
+
+    def step(self, s):
+        return self._step(s)
+
+    def run(self, s, steps):
+        for _ in range(steps):
+            s = self._step(s)
+        return s
+
+
+def locate_difference(torch, np, model, card):
+    """Phase 14a: the (2, 4) step's parts against their single-device
+    counterparts, from the JW06 flow: the dynamics alone (with the
+    shared-edge symmetrization), printed; and the forcing alone on the
+    block-local latitudes the step hands its forcing, which must equal the
+    single-device forcing within FORCING_ULP ulp of the field's largest
+    value (it is pointwise in the columns; the step gates cannot see a
+    latitude mix-up, since one step of relaxation moves pt by millikelvin,
+    ~100 such ulp)."""
+    import dataclasses as dc
+
+    from geosongpu_tpu_torch.parallel.halo import symmetrize_shared_edges
+    from geosongpu_tpu_torch.parallel.subtile import (SubtileLayout,
+                                                      build_subtile_step)
+
+    cfg = model.config
+    lay = SubtileLayout(n=cfg.npx, h=cfg.halo, py=2, px=4,
+                        face_sharded=False)
+    s0 = flow_state(model)
+    seen = []
+
+    def record(s, lats_l):
+        seen.append(lats_l)
+        return s
+
+    step, place, unplace = build_subtile_step(model.ctx, lay,
+                                              lats=model.lats, forcing=record)
+    got = unplace(step(place(s0)))
+    want = model.dynamics(s0)
+    u, v = symmetrize_shared_edges(want.u, want.v)
+    want = dc.replace(want, u=u, v=v)
+    parts = [("dynamics", got, want, ("u", "v", "delp", "pt", "omga", "mfx",
+                                     "mfy"))]
+    # the latitudes the step hands its blocks
+    forced = unplace(model.forcing(place(want), seen[0]))
+    single = model.forcing(want)
+    parts.append(("forcing", forced, single, ("u", "v", "pt")))
+    ulps = {}
+    for f in ("u", "v", "pt"):
+        a = getattr(forced, f).cpu().numpy()
+        b = getattr(single, f).cpu().numpy()
+        ulps[f] = float(np.abs(a.astype(np.float64) - b).max()
+                        / np.spacing(np.abs(b).max()))
+        if not ulps[f] <= FORCING_ULP:
+            fail(f"c{cfg.npx} (2,4): the forcing on the block latitudes is "
+                 f"{ulps[f]:.0f} ulp from the single-device forcing in {f}")
+    for label, g, w, fields in parts:
+        print(f"[sharded] c{cfg.npx} (2,4), {label} alone against "
+              "single-device: max diff " + ", ".join(
+                  f"{f} {float((getattr(g, f) - getattr(w, f)).abs().max()):.3e}"
+                  for f in fields) + f" ({card})")
+    print(f"[sharded] c{cfg.npx} (2,4), the forcing on the block latitudes: "
+          + ", ".join(f"{f} {u:.0f} ulp" for f, u in ulps.items())
+          + f" from single-device ({card})")
+
+
+def run_sharded(torch, np, counters, build_model_for, card, results, dev):
+    """Phase 14, the sharded step on stacked ranks on `dev`.  Returns the
+    launches of the (2, 4) fused path."""
+    from dataclasses import replace
+
+    from geosongpu_tpu_torch.cli import PRESETS
+    from geosongpu_tpu_torch.harness.task import dispatch
+    from geosongpu_tpu_torch.ops.kernels import dsw
+    from geosongpu_tpu_torch.ops.kernels import remap as kremap
+    from geosongpu_tpu_torch.ops.remap import remap_fields_banded
+
+    t0 = time.perf_counter()
+    fused = PRESETS[SHARDED_PRESET]
+    model = build_model_for(SHARDED_PRESET)(fused, dev)
+    per_step = PATHS[SHARDED_PRESET][2]
+    # a. faces-local (2, 4): 8 ranks, 24 x 12 blocks, 48 slots
+    launches, stepper, _, _ = sharded_vs_single(
+        torch, np, model, dict(face=1, y=2, x=4), "c48 fused (2,4)",
+        counters, per_step, card)
+    # device time of each stage on the blocks, beside the faces', in turns
+    profile_steps(torch, model, "c48 fused, one device", card)
+    profile_steps(torch, Placed(model, *stepper), "c48 fused (2,4) stacked",
+                  card)
+    args = kernel_inputs(torch, np, model, dev, sharded=stepper)
+    check_kernels(torch, dsw, args, list(args), "blocks", card, results)
+    F, ny, nx = 48, fused.npx // 2, fused.npx // 4   # 48 x 24 x 12
+    if tuple(args["dsw_csw1"][0].shape[:3]) != (F, ny + 1 + 6, nx + 6):
+        fail(f"the (2,4) blocks are not {F} slots of {ny} x {nx}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    results["remap_banded blocks"] = check_remap(
+        torch, kremap, remap_fields_banded, fused, f"48 (2,4) blocks", gen,
+        dev, card, 20, block=(F, ny, nx))
+    del args, stepper
+    # where a difference from the single-device step arises: the same
+    # layout without the chart corrections, and the step's two parts apart
+    sharded_vs_single(
+        torch, np, build_model_for(SHARDED_PRESET)(
+            replace(fused, chart_corners=False), dev),
+        dict(face=1, y=2, x=4), "c48 fused (2,4) without chart corners",
+        counters, per_step, card)
+    locate_difference(torch, np, model, card)
+    # b. face-sharded (6, 2, 2): 24 ranks, the 6*NX*NY rank shape
+    sharded_vs_single(torch, np, model, dict(face=6, y=2, x=2),
+                      "c48 fused (6,2,2)", counters, per_step, card)
+    # d. eager with overlap_fills and rim_split on (2, 4): from the flow
+    # against the single-device step with them (the pipelined pads move
+    # the winds by ~3e-5 of max|u|, in the reference too), from the rest
+    # start against the single-device eager step without them
+    eager = PRESETS["held_suarez_c48_l72"]
+    plain = build_model_for("held_suarez_c48_l72")(eager, dev)
+    split = build_model_for("held_suarez_c48_l72")(
+        replace(eager, overlap_fills=True, rim_split=True), dev)
+    sharded_vs_single(torch, np, split, dict(face=1, y=2, x=4),
+                      "c48 eager overlap_fills+rim_split (2,4)", counters,
+                      PATHS["held_suarez_c48_l72"][2], card,
+                      rest_reference=plain)
+    del model, plain, split
+    torch.cuda.empty_cache()
+    # c. c192 fused on the held_suarez_c192 experiment's (6, 1, 1)
+    c192 = build_model_for("held_suarez_c192_l72_fused")(
+        PRESETS["held_suarez_c192_l72_fused"], dev)
+    sharded_vs_single(torch, np, c192, dict(face=6, y=1, x=1),
+                      "c192 fused blend (6,1,1)", counters,
+                      PATHS["held_suarez_c192_l72_fused"][2], card)
+    del c192
+    torch.cuda.empty_cache()
+    # e. through dispatch: the sharded experiment on 8 stacked ranks, and
+    # the scaling task on the one card's one real rank
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dispatch(SHARDED_EXPERIMENT, "Validation",
+                       artifact_directory=os.path.join(tmp, "art"),
+                       workspace=os.path.join(tmp, "ws"), device=dev.type,
+                       stacked_ranks=True)
+        rec = env.get("hs.record")
+        if rec.extra["mesh"] != "subtile faces-local (2,4), 8 devices":
+            fail(f"{SHARDED_EXPERIMENT}: mesh {rec.extra['mesh']!r}")
+        print(f"[sharded] {SHARDED_EXPERIMENT} Validation through dispatch: "
+              f"{rec.extra['mesh']}; gates passed; median step "
+              f"{statistics.median(rec.step_time_s) * 1e3:.2f} ms (8 ranks "
+              f"stacked on one card; {card})")
+        env = dispatch("scaling_bench", "All",
+                       artifact_directory=os.path.join(tmp, "art"),
+                       workspace=os.path.join(tmp, "ws"), device=dev.type)
+        res = env.get("scaling.results")
+        c = res["comm"]
+        print(f"[sharded] scaling_bench: {res['n_devices']} real rank; "
+              + ", ".join(f"c{e['npx']} {e['step_s'] * 1e3:.2f} ms/step"
+                          for e in res["weak_scaling"])
+              + "; loopback ring copy "
+              + ", ".join(f"{sz} B {g:.2f} GB/s"
+                          for sz, g in zip(c["sizes"], c["ppermute_gbps"]))
+              + f"; sum {statistics.median(c['psum_us']):.1f} us ({card})")
+    print(f"[sharded] phase 14: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+T_START = time.perf_counter()
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1869,6 +2175,9 @@ def main() -> int:
     print_build_log(lib.build_log)
     if "--harness" in sys.argv[1:]:
         run_phase_13(torch, np, counters, build_model_for, card, name)
+        return 0
+    if "--sharded" in sys.argv[1:]:
+        run_sharded(torch, np, counters, build_model_for, card, {}, dev)
         return 0
     if "--stages" in sys.argv[1:]:
         if "columns" not in sys.argv[1:]:
@@ -2030,6 +2339,10 @@ def main() -> int:
     # ---- 13. the host bridge, checkpoint and resume, jobs ----------------
     run_phase_13(torch, np, counters, build_model_for, card, name)
 
+    # ---- 14. the sharded step on stacked ranks ---------------------------
+    launches["blocks"] = run_sharded(torch, np, counters, build_model_for,
+                                     card, results, dev)
+
     # each entry: (key of results, kernel, path whose launches it reports)
     entries = [(k, k, "fused") for k in list(KERNELS)[:6]] + [
         ("dsw_wind blend", "dsw_wind", "c192"),
@@ -2060,9 +2373,14 @@ def main() -> int:
             "library_ms": None,
         } for key, k, path in entries]
 
+    print(json.dumps({"kernels_blocks": rows(
+        [(f"{k} blocks", k, "blocks")
+         for k in list(KERNELS)[:6]])}))
     print(json.dumps({"kernels_c192": rows(
         [(f"{k} c192", k, "c192")
          for k in C192_KERNELS + ["remap_banded"]])}))
+    print(f"[main] whole script: {time.perf_counter() - T_START:.1f} s "
+          f"({card})")
     print(json.dumps({"kernels": rows(entries)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

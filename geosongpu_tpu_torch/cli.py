@@ -6,7 +6,7 @@
         [--device cuda|cpu]
     python -m geosongpu_tpu_torch.cli ci EXPERIMENT [ACTION]
         [--artifact DIR] [--workspace DIR] [--setup_only]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--stacked-ranks]
 
 `run` steps the preset's model, Held-Suarez, aquaplanet or the JW06
 baroclinic wave.  `ci` dispatches an experiment of the port's harness
@@ -14,8 +14,10 @@ baroclinic wave.  `ci` dispatches an experiment of the port's harness
 a task's check fails.  The experiments are the reference's:
 
 * `held_suarez_c12`, `_c24`, `_c48`, `_c192` and `_c16_sharded` (the
-  HeldSuarez task; a declared mesh larger than the host runs on one
-  device), `aquaplanet_c24` and `aquaplanet_c48` (Aquaplanet): Validation
+  HeldSuarez task; a declared mesh runs sharded over the ranks of an
+  initialised process group, or with `--stacked-ranks` over all its ranks
+  stacked on the one device; a mesh larger than the host's ranks runs on
+  one device), `aquaplanet_c24` and `aquaplanet_c48` (Aquaplanet): Validation
   gates one run; Benchmark times the eager substep against the fused
   kernels, each with its measured phase tree, and writes the records and
   `report_benchmark.out` to the artifact directory;
@@ -26,7 +28,9 @@ a task's check fails.  The experiments are the reference's:
   `backend` says);
 * `physics_standalone_<kernel>` and `physics_standalone_all` (the seven
   standalone physics tasks, the gate below as pipeline tasks);
-* `jw_baroclinic_c48`, `_c48_fused` and `_smoke` (BaroclinicWave).
+* `jw_baroclinic_c48`, `_c48_fused` and `_smoke` (BaroclinicWave);
+* `scaling_bench` (ScalingBench: the transport microbenchmark and the
+  weak-scaling sweep over the real ranks).
 
 `physics` runs
 the dual-build gate of the standalone physics kernels
@@ -154,6 +158,9 @@ def main(argv=None) -> int:
                     choices=["All", "Validation", "Benchmark"])
     ci.add_argument("--artifact", default=".", help="artifact directory")
     ci.add_argument("--setup_only", action="store_true")
+    ci.add_argument("--stacked-ranks", action="store_true",
+                    help="run a declared mesh with all its ranks stacked in "
+                         "this process on the one device")
     ci.add_argument("--workspace", default=None,
                     help="CI_WORKSPACE (default: that environment variable, "
                          "else ./.ci_workspace)")
@@ -175,7 +182,8 @@ def main(argv=None) -> int:
             "CI_WORKSPACE", os.path.join(os.getcwd(), ".ci_workspace"))
         dispatch(args.experiment_name, args.experiment_action,
                  artifact_directory=args.artifact,
-                 setup_only=args.setup_only, workspace=ws, device=args.device)
+                 setup_only=args.setup_only, workspace=ws, device=args.device,
+                 stacked_ranks=args.stacked_ranks)
         return 0
     if args.cmd == "physics":
         from .physics.standalone_gate import KERNELS

@@ -22,7 +22,9 @@ tests/test_torch_core.py.  The apply side (`ChartCorners`) moves the
 weights to the device once and applies them with torch, in the
 reference's order: each corner's patch is read from the INPUT array and
 its base from the running output, one static-slice block update per
-corner.
+corner.  The weights are per slot of the leading axis: the six faces on
+one device, or, for the blocks of a sharded step, each block's face with
+the corners its block does not own gated off (`sharded_chart_for_subtile`).
 """
 from __future__ import annotations
 
@@ -458,11 +460,11 @@ class ChartCorners:
     """Device copy of the corner weights + the two apply operations."""
 
     h: int
-    sc_dw_x: torch.Tensor   # [6, 4, W*W, P*P]
+    sc_dw_x: torch.Tensor   # [F, 4, W*W, P*P], F slots (6 faces)
     sc_dw_y: torch.Tensor
     sc_ex: torch.Tensor     # one-sided weights for derived fields
-    st_w: torch.Tensor      # [6, 4, 2*W*W, S]
-    st_mask: torch.Tensor   # [4, W*W] bool
+    st_w: torch.Tensor      # [F, 4, 2*W*W, S]
+    st_mask: torch.Tensor   # [1 or F, 4, W*W] bool
 
     @classmethod
     def from_tables(cls, tables: ChartCornerTables, device) -> "ChartCorners":
@@ -471,7 +473,24 @@ class ChartCorners:
                    sc_dw_y=to_torch(tables.sc_dw_y, device),
                    sc_ex=to_torch(tables.sc_ex, device),
                    st_w=to_torch(tables.st_w, device),
-                   st_mask=torch.as_tensor(tables.st_mask, device=device))
+                   st_mask=torch.as_tensor(tables.st_mask[None],
+                                           device=device))
+
+    def for_slots(self, faces, gates) -> "ChartCorners":
+        """The corrections of a sharded step's blocks: slot k takes face
+        faces[k]'s weights, its corner c only where gates[k][c] is 1 (a
+        block owns a cube corner only at the face's extremes).  A gated-off
+        scalar corner has zero weights, an exact passthrough in deviation
+        form; a gated-off A-grid corner keeps its values by the mask."""
+        dev = self.sc_dw_x.device
+        f = torch.as_tensor(np.asarray(faces, np.int64), device=dev)
+        g = to_torch(np.asarray(gates, np.float32), dev)      # [F, 4]
+        scale = g[:, :, None, None]
+        return ChartCorners(
+            h=self.h, sc_dw_x=self.sc_dw_x[f] * scale,
+            sc_dw_y=self.sc_dw_y[f] * scale, sc_ex=self.sc_ex[f] * scale,
+            st_w=self.st_w[f], st_mask=self.st_mask[0][None]
+            & (g[:, :, None] > 0))
 
     def apply_scalar(self, a: torch.Tensor, direction: str = "x"):
         """Resample the corner L-regions of a padded [F, Ny, Nx, ...] scalar
@@ -488,7 +507,7 @@ class ChartCorners:
         for cid in range(4):
             ys, xs = _corner_patch_slices(Ny, Nx, P, P, cid)
             ysq, xsq = _corner_patch_slices(Ny, Nx, W, W, cid)
-            Wd = W_all[:, cid]                        # [6, WW, PP]
+            Wd = W_all[:, cid]                        # [F, WW, PP]
             patch = a[:, ys, xs]
             samp = patch.reshape((patch.shape[0], P * P) + patch.shape[3:])
             blk = out[:, ysq, xsq]
@@ -518,13 +537,32 @@ class ChartCorners:
                 up.reshape((up.shape[0], (P + 1) * P) + up.shape[3:]),
                 vp.reshape((vp.shape[0], P * (P + 1)) + vp.shape[3:]),
             ], dim=1)                                 # [F, S, ...]
-            Wd = self.st_w[:, cid]                    # [6, 2*WW, S]
+            Wd = self.st_w[:, cid]                    # [F, 2*WW, S]
             rec = torch.einsum("fws,fs...->fw...", Wd, samp)
-            mshape = (1, WW) + (1,) * (rec.ndim - 2)
-            mask = self.st_mask[cid].reshape(mshape)
+            mshape = (self.st_mask.shape[0], WW) + (1,) * (rec.ndim - 2)
+            mask = self.st_mask[:, cid].reshape(mshape)
             for comp, tgt in ((0, ua_out), (1, va_out)):
                 blk = tgt[:, ysq, xsq]
                 cur = blk.reshape((blk.shape[0], WW) + blk.shape[3:])
                 new = torch.where(mask, rec[:, comp * WW:(comp + 1) * WW], cur)
                 tgt[:, ysq, xsq] = new.reshape(blk.shape)
         return ua_out, va_out
+
+
+def sharded_chart_for_subtile(chart: ChartCorners, layout, ranks):
+    """The corrections of the blocks of `ranks` of a parallel.subtile
+    layout, or None when the blocks are too small to hold the corner
+    patches (bn < P - h): such layouts run without the corner correction,
+    as the original's do."""
+    if min(layout.bny, layout.bnx) < _patch_width(chart.h) - chart.h:
+        return None
+    faces, gates = [], []
+    for d in ranks:
+        fd, by, bx = layout.dev_coords(d)
+        gate = [float(by == (layout.py - 1 if isn else 0)
+                      and bx == (layout.px - 1 if ise else 0))
+                for isn, ise in _CORNERS]
+        for f in ([fd] if layout.face_sharded else range(NFACES)):
+            faces.append(f)
+            gates.append(gate)
+    return chart.for_slots(faces, gates)

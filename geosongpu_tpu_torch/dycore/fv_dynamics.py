@@ -14,6 +14,13 @@ sw_fused.d_sw_substep_fused (the dsw_* CUDA kernels of ops/kernels/dsw.py)
 and the z_tracer subcycles run dsw_tracer_acc; otherwise the substep is
 the eager sw.d_sw_substep.  Every kernel wrapper launches its kernel for
 CUDA tensors and runs its plain PyTorch version for CPU ones.
+
+overlap_fills pipelines the scalar fills: each substep's padded delp/pt
+(/delz) are the previous substep's mid-step refills, and only the winds,
+w and per-substep tracers are exchanged afresh, which saves exchanges on
+a sharded step (parallel/subtile.py).  rim_split is accepted and runs the
+unsplit c_sw: the split only lets an asynchronous D-grid exchange overlap
+the c_sw core, and the port's rank groups exchange synchronously.
 """
 from __future__ import annotations
 
@@ -34,8 +41,8 @@ from ..ops.remap import remap_field
 from ..ops.vertical import cumsum_k, interfaces_from_delp
 from ..parallel.halo import HaloOps, build_halo_ops
 from .nh_solver import _exner_mid, hydrostatic_delz
-from .sw import (PaddedMetrics, StagResample, d_sw_substep, fill_substep,
-                 padded_metrics, stag_resample_tables)
+from .sw import (PaddedMetrics, StagResample, SWState, d_sw_substep,
+                 fill_substep, padded_metrics, stag_resample_tables)
 from .sw_fused import d_sw_substep_fused, tracer_interval_advect
 
 
@@ -49,9 +56,6 @@ def check_supported(cfg: DycoreConfig) -> None:
         unported.append(f"pallas_kt={cfg.pallas_kt} (TPU vertical tiling, "
                         "which changes the column fold of dsw_csw2 and "
                         "dsw_wind; TPU-only machinery per the ROADMAP)")
-    if cfg.overlap_fills or cfg.rim_split:
-        unported.append("overlap_fills / rim_split (they only pay across "
-                        "devices; ROADMAP queue A item 13)")
     if cfg.dtype != "float32":
         unported.append(f"dtype={cfg.dtype!r} (the port runs float32)")
     # the remap and PPM refuse these values too (ops/remap.py, ops/ppm.py);
@@ -240,6 +244,18 @@ def fv_dynamics_step(state: DycoreState, ctx: DycoreContext,
     stag = ctx.stag if _use_exchange(cfg) else None
     substep = d_sw_substep_fused if cfg.pallas_dycore else d_sw_substep
 
+    def fx(a):
+        if a is None:
+            return None
+        out = ops.fill(a, "x")
+        return chart.apply_scalar(out, "x") if chart is not None else out
+
+    def fy(a, same):
+        # under chart corners the corrected x-fill serves both directions
+        if a is None:
+            return None
+        return same if chart is not None else ops.fill(a, "y")
+
     F = delp.shape[0]
     Ny, Nx, K = ny + 2 * h, nx + 2 * h, cfg.npz
     for _ks in range(cfg.k_split):
@@ -249,10 +265,14 @@ def fv_dynamics_step(state: DycoreState, ctx: DycoreContext,
                     ops.zeros((F, Ny + 1, Nx, K)),
                     ops.zeros((F, Ny, Nx + 1, K)),
                     ops.zeros((F, Ny + 1, Nx, K))]
-        for _ in range(cfg.n_split):
-            s = fill_substep(ops, u, v, delp, pt,
-                             q if substep_tracers else None,
-                             w=w, delz=delz, chart=chart)
+        for i in range(cfg.n_split):
+            if cfg.overlap_fills and i > 0:
+                # the scalar pads of the previous substep's end
+                s = SWState(*ops.fill_dgrid(u, v), *pads)
+            else:
+                s = fill_substep(ops, u, v, delp, pt,
+                                 q if substep_tracers else None,
+                                 w=w, delz=delz, chart=chart)
             out = substep(
                 s, m, ops, dt_acoustic, cfg.ptop, hord=cfg.hord,
                 d2_bg=cfg.d2_bg, advect_tracers=substep_tracers,
@@ -270,6 +290,15 @@ def fv_dynamics_step(state: DycoreState, ctx: DycoreContext,
             else:
                 mfx_acc = mfx_acc + out.mfx
                 mfy_acc = mfy_acc + out.mfy
+            if cfg.overlap_fills:
+                # the substep's mid-step refills of delp/pt (/delz) are
+                # fx of the new interiors: reuse them; only w and
+                # per-substep tracers are exchanged afresh
+                qs = q if substep_tracers else None
+                pq, pw = fx(qs), fx(w)
+                pads = (out.pd_fill, fy(delp, out.pd_fill),
+                        out.pt_fill, fy(pt, out.pt_fill), pq, fy(qs, pq),
+                        pw, fy(w, pw), out.pz_fill, fy(delz, out.pz_fill))
         if z_tracer:
             mfx_acc = mfx_acc + tacc[2][:, h:h + ny, h:h + nx + 1]
             mfy_acc = mfy_acc + tacc[3][:, h:h + ny + 1, h:h + nx]
@@ -298,8 +327,10 @@ def fv_dynamics_step(state: DycoreState, ctx: DycoreContext,
         if nonhydro:
             w = out[1 + nq]
             delz = out[2 + nq] * delp_new
-        u, v = _remap_winds(u, v, ops.fill(delp, "x"), ctx.ak, ctx.bk,
-                            cfg.ptop, h, ny, nx, rm)
+        # with overlap_fills the last substep's padded delp is fx(delp)
+        dpad = pads[0] if cfg.overlap_fills else ops.fill(delp, "x")
+        u, v = _remap_winds(u, v, dpad, ctx.ak, ctx.bk, cfg.ptop, h, ny, nx,
+                            rm)
         delp = delp_new
 
     if nonhydro and cfg.w_sponge_p > 0.0:

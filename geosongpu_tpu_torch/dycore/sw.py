@@ -14,10 +14,12 @@ The functions are the plain PyTorch versions of the substep kernels
 dsw_csw1 (c_sw_part1), dsw_csw2 (c_sw_part2), dsw_transport
 (transport_part) and dsw_wind (wind_part, nh_perturbation_fields).
 
-Not here: the rim-split c_sw and the pipelined fills, which only pay
-across devices (ROADMAP queue A item 13), and the strip form of
-a_grid_winds, a memory optimisation of the reference documented as
-bit-identical to the full-array form used here.
+Not here: the rim-split c_sw, which only pays where the D-grid exchange
+can overlap the core (an asynchronous transport across devices; the
+port's rank groups exchange synchronously, so `rim_split` runs the
+unsplit c_sw, fv_dynamics.py), and the strip form of a_grid_winds, a
+memory optimisation of the reference documented as bit-identical to the
+full-array form used here.
 """
 from __future__ import annotations
 

@@ -92,10 +92,13 @@ def get_config(experiment_name: str) -> Dict[str, Any]:
 def dispatch(experiment_name: str, experiment_action: str = PipelineAction.All,
              artifact_directory: str = ".", setup_only: bool = False,
              workspace: Optional[str] = None,
-             device: str = "cuda") -> Environment:
+             device: str = "cuda",
+             stacked_ranks: bool = False) -> Environment:
     """Resolve the experiment, build the env, run its task list in order,
     and raise CICheckException if any check fails.  device: where the
-    tasks run their models (env "device")."""
+    tasks run their models (env "device").  stacked_ranks: run a declared
+    mesh with all its ranks stacked in this process on `device` (env
+    "stacked_ranks"; parallel/comm.StackedGroup)."""
     raw = get_config(experiment_name)
     exp_cfg = None
     if "experiment" in raw:
@@ -111,6 +114,7 @@ def dispatch(experiment_name: str, experiment_action: str = PipelineAction.All,
     if workspace:
         env.set("CI_WORKSPACE", os.path.abspath(workspace))
     env.set("device", device)
+    env.set("stacked_ranks", bool(stacked_ranks))
 
     # import for side-effect: task classes self-register
     from . import tasks  # noqa: F401

@@ -20,10 +20,12 @@ sample after each timed step) and the record's energy filled: `tpu_kwh` is
 the card's energy counter over the timed steps (0 on the CPU), `cpu_kwh`
 the host model's integral over the samples' times.
 
-The port runs on one device.  An experiment that declares a mesh of more
-devices than the host has runs single-device and says so in the record
-(the original's own branch for such a layout); the sharded path of a mesh
-the host could hold is not ported (ROADMAP A.13) and is refused.
+An experiment's declared mesh runs sharded (parallel/subtile.py
+build_mesh_stepper): over the ranks of an initialised process group, or,
+with env "stacked_ranks" set, over all ranks of the layout stacked in this
+process on the one device.  A layout larger than the host's real ranks
+runs single-device and says so in the record, as the original does.  The
+gates run on the unplaced global state; a sharded run has no phase tree.
 """
 from __future__ import annotations
 
@@ -37,13 +39,14 @@ import torch
 
 from ...benchmark.phases import measure_phases, remap_leaf
 from ...benchmark.timing import BenchmarkRecord, StepTimer, report
-from ...core.config import DycoreConfig, ExperimentConfig, MeshConfig
+from ...core.config import DycoreConfig, ExperimentConfig
 from ...device import synchronize, to_torch
 from ...hws.analysis import energy_envelope, load_data
 from ...hws.server import Sampler
 from ...ops.kernels import launch_counts
 from ...ops.remap import remap_field, remap_field_banded
 from ...ops.vertical import interfaces_from_delp
+from ...parallel.subtile import build_mesh_stepper
 from ..environment import Environment
 from ..exceptions import CICheckException
 from ..progress import Progress
@@ -51,21 +54,7 @@ from ..registry import Registry
 from ..task import PipelineAction, TaskBase
 
 PHASE_INNER = 10   # calls a block of the phase tree's timing
-
-
-def mesh_description(mesh: MeshConfig, device: torch.device) -> str:
-    """The record's "mesh" entry for a run on `device`: "single-device",
-    or the original's string for a declared layout larger than the host.
-    Raises NotImplementedError for a layout the host could hold."""
-    if mesh is None or mesh.n_devices <= 1:
-        return "single-device"
-    available = torch.cuda.device_count() if device.type == "cuda" else 1
-    if available >= mesh.n_devices:
-        raise NotImplementedError(
-            f"mesh of {mesh.n_devices} devices on a host with {available}: "
-            "the sharded path is not ported (ROADMAP A.13)")
-    return (f"single-device (mesh {mesh.n_devices} devices declared, "
-            f"{available} available)")
+STACKED = ("1", "true", "True", True)   # values of env "stacked_ranks"
 
 
 @Registry.register
@@ -89,21 +78,22 @@ class HeldSuarez(TaskBase):
                    with_phases: bool = False, mesh=None):
         """One measured run -> (BenchmarkRecord, final state, model)."""
         device = torch.device(env.get("device", "cuda"))
-        mesh_desc = mesh_description(mesh, device)
         sampler = None
         if env.get("HARDWARE_SAMPLING") in ("1", "true", "True"):
             sampler = Sampler(rate_s=0.1, device=device)
         try:
             return self._measure(env, dyc, backend_name, steps, warmup,
-                                 with_phases, device, mesh_desc, sampler)
+                                 with_phases, device, mesh, sampler)
         finally:
             if sampler is not None:
                 sampler.close()
 
     def _measure(self, env, dyc, backend_name, steps, warmup, with_phases,
-                 device, mesh_desc, sampler):
+                 device, mesh, sampler):
         before = launch_counts()
         model = self.build_model(dyc, device)
+        place, step, unplace, mesh_desc = build_mesh_stepper(
+            model, mesh, stacked=env.get("stacked_ranks") in STACKED)
         rec = BenchmarkRecord(
             experiment=env.experiment_name,
             backend=backend_name,
@@ -112,14 +102,14 @@ class HeldSuarez(TaskBase):
         rec.extra["mesh"] = mesh_desc
 
         t0 = time.perf_counter()
-        state = model.init(perturb=1e-3)
+        state = place(model.init(perturb=1e-3))
         synchronize(device)
         rec.setup_time_s = time.perf_counter() - t0
 
         # warm-up: the first step builds the kernels
         t0 = time.perf_counter()
         for _ in range(max(1, warmup)):
-            state = model.step(state)
+            state = step(state)
         synchronize(device)
         rec.compile_time_s = time.perf_counter() - t0
 
@@ -127,7 +117,7 @@ class HeldSuarez(TaskBase):
         start = sampler.read_counter() if sampler is not None else None
         for _ in range(steps):
             timer.start()
-            state = model.step(state)
+            state = step(state)
             synchronize(device)
             timer.stop()
             if sampler is not None:
@@ -139,11 +129,17 @@ class HeldSuarez(TaskBase):
             fill_energy(rec, sampler, start, os.path.join(
                 env.CI_WORKSPACE, "hws_" + backend_name.replace(":", "_")))
 
-        if with_phases:
+        state = unplace(state)   # the global state, for gates and archives
+        if with_phases and mesh_desc.startswith("single-device"):
             rec.phase_tree = measure_phases(
                 model, state, inner=PHASE_INNER,
                 forcing_fn=self.phase_forcing(model, state)).to_dict()
             rec.extra["remap_leaf"] = remap_leaf(dyc)
+        elif with_phases:
+            # the phase tree instruments the single-device model's
+            # functions; a sharded run keeps the whole-step times
+            rec.extra["phases_note"] = ("sharded run: per-phase tree not "
+                                        "instrumented, whole-step times only")
         # the kernels this run launched (steps and tree), by name
         rec.extra["launches"] = {k: n - before[k]
                                  for k, n in launch_counts().items()

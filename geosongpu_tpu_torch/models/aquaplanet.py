@@ -34,7 +34,6 @@ from ..ops.kernels import columns as kcolumns
 from ..ops.kernels import microphysics as kmicro
 from ..ops.kernels.build import load_library
 from ..ops.vertical import interfaces_from_delp
-from ..parallel.halo import symmetrize_shared_edges
 from ..physics import standalone as primary
 from ..physics.held_suarez import held_suarez_forcing
 from ..physics.thermo import CP_AIR, GRAV, RDGAS, qsat
@@ -77,11 +76,13 @@ class AquaplanetModel(held_suarez.HeldSuarezModel):
                                 torch.full_like(t, 1e-6))
         return dataclasses.replace(state, q=q)
 
-    def microphysics_inputs(self, state: DycoreState):
+    def microphysics_inputs(self, state: DycoreState, sst=None):
         """The physics chain up to the microphysics: filling, surface fluxes
-        and shallow convection -> (pkz, (t, qv, ql, qr, qi, p_mid, delp,
-        dt)), the second being the microphysics' arguments."""
+        (over `sst`, default the model's) and shallow convection -> (pkz,
+        (t, qv, ql, qr, qi, p_mid, delp, dt)), the second being the
+        microphysics' arguments."""
         cfg = self.config
+        sst = self.sst if sst is None else sst
         dt = cfg.dt
         delp = state.delp.contiguous()
         pkz = exner_mid(delp, cfg.ptop)
@@ -103,9 +104,9 @@ class AquaplanetModel(held_suarez.HeldSuarezModel):
                           + state.va[..., -1] ** 2) + 1.0
         rho_s = p_mid[..., -1] / (RDGAS * t[..., -1])
         dp_bot = delp[..., -1]
-        qs_sst = qsat(self.sst, pe[..., -1])
+        qs_sst = qsat(sst, pe[..., -1])
         evap = CD * wind * rho_s * torch.clamp_min(qs_sst - qv[..., -1], 0.0)
-        shf = CD * wind * rho_s * CP_AIR * (self.sst - t[..., -1])
+        shf = CD * wind * rho_s * CP_AIR * (sst - t[..., -1])
         qv[..., -1] += evap * GRAV * dt / dp_bot
         t[..., -1] += shf * GRAV * dt / (CP_AIR * dp_bot)
 
@@ -113,28 +114,27 @@ class AquaplanetModel(held_suarez.HeldSuarezModel):
         t, qv = shallow(t, qv, p_mid, delp, dt)
         return pkz, (t, qv, ql, qr, torch.zeros_like(ql), p_mid, delp, dt)
 
-    def physics(self, state: DycoreState) -> DycoreState:
-        """The moist physics chain alone, on the state the dynamics left."""
+    def physics(self, state: DycoreState, lats=None) -> DycoreState:
+        """The moist physics chain alone, on the state the dynamics left;
+        lats: block-local latitudes (the SST follows them), default the
+        model's."""
         cfg = self.config
         microphysics = (kmicro.gfdl_microphysics if cfg.pallas_microphysics
                         else primary.gfdl_microphysics)
-        pkz, args = self.microphysics_inputs(state)
+        sst = None if lats is None else sst_qobs(lats.lat_c)
+        pkz, args = self.microphysics_inputs(state, sst)
         t, qv, ql, qr, _qi, _precip = microphysics(*args)
 
         # ---- radiative relaxation (Held-Suarez style, weak) -------------
         q = torch.stack([qv, ql, qr] + [state.q[..., n] for n in
                                         range(3, state.q.shape[-1])], dim=-1)
         u, v, pt = held_suarez_forcing(state.u, state.v, t / pkz, state.delp,
-                                       self.lats, cfg.ptop, cfg.dt)
+                                       self.lats if lats is None else lats,
+                                       cfg.ptop, cfg.dt)
         return dataclasses.replace(state, u=u, v=v, pt=pt, q=q)
 
-    def step(self, state: DycoreState) -> DycoreState:
-        state = self.physics(self.dynamics(state))
-        if self.config.edge_symmetrize:
-            u, v = symmetrize_shared_edges(state.u, state.v)
-            state = dataclasses.replace(state, u=u, v=v)
-        state.check_f32()
-        return state
+    # the step is the Held-Suarez model's, with the moist chain as forcing
+    forcing = physics
 
     # run_with_history records the mean surface pressure, max |u|, mean
     # vapour and the (unrecorded) precipitation total after each step

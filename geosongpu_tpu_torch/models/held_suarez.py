@@ -1,5 +1,9 @@
 """Held-Suarez model: dynamics + HS94 forcing + shared-edge symmetrization
-(geosongpu_tpu/models/held_suarez.py), run eagerly on one device."""
+(geosongpu_tpu/models/held_suarez.py), run eagerly on one device.
+
+`forcing(state, lats)` is the column physics alone, on the latitudes it is
+given: the model's own, or a sharded step's block-local ones
+(parallel/subtile.build_mesh_stepper)."""
 from __future__ import annotations
 
 import dataclasses
@@ -43,15 +47,20 @@ class HeldSuarezModel:
         """The dynamics alone (no forcing, no symmetrization)."""
         return fv_dynamics_step(state, self.ctx, remap=self.remap)
 
-    def step(self, state: DycoreState) -> DycoreState:
+    def forcing(self, state: DycoreState, lats: HSLatitudes = None
+                ) -> DycoreState:
+        """HS94 forcing on `lats` (default: the model's)."""
         cfg = self.config
-        state = self.dynamics(state)
-        u, v, pt = held_suarez_forcing(state.u, state.v, state.pt,
-                                       state.delp, self.lats, cfg.ptop,
-                                       cfg.dt)
-        if cfg.edge_symmetrize:
-            u, v = symmetrize_shared_edges(u, v)
-        out = dataclasses.replace(state, u=u, v=v, pt=pt)
+        u, v, pt = held_suarez_forcing(
+            state.u, state.v, state.pt, state.delp,
+            self.lats if lats is None else lats, cfg.ptop, cfg.dt)
+        return dataclasses.replace(state, u=u, v=v, pt=pt)
+
+    def step(self, state: DycoreState) -> DycoreState:
+        out = self.forcing(self.dynamics(state))
+        if self.config.edge_symmetrize:
+            u, v = symmetrize_shared_edges(out.u, out.v)
+            out = dataclasses.replace(out, u=u, v=v)
         out.check_f32()
         return out
 

@@ -132,11 +132,18 @@ def test_model_on_card_matches_cpu(cuda):
         assert float(np.abs(a[f] - b[f]).max()) <= max(1e-4 * scale, atol), f
 
 
-def test_model_rejects_unported_option_on_card(cuda):
-    cfg = dataclasses.replace(DycoreConfig(npx=12, npz=8), rim_split=True,
-                              overlap_fills=True)
-    with pytest.raises(NotImplementedError):
-        build_model(cfg, cuda)
+def test_rim_split_step_equals_unsplit_on_card(cuda):
+    """overlap_fills with and without rim_split, 2 steps at c12-L8 on the
+    card: the flag is accepted and gives the unsplit step (the port's rank
+    groups exchange synchronously, so the split would not pay)."""
+    cfg = dataclasses.replace(DycoreConfig(npx=12, npz=8, dt=1200.0,
+                                           n_split=2), overlap_fills=True)
+    split = build_model(dataclasses.replace(cfg, rim_split=True), cuda)
+    unsplit = build_model(cfg, cuda)
+    start = split.init(perturb=3.0)
+    a, b = split.run(start, 2), unsplit.run(start, 2)
+    for f in ("u", "v", "delp", "pt", "ps"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
 
 
 # ---- the fused substep kernels -------------------------------------------

@@ -164,14 +164,15 @@ def test_jw_experiments_equal_the_reference_table():
         (ROOT / "geosongpu_tpu/harness/data/experiments.yaml").read_text())
     table = t_task.load_experiments()
     # the JW06 entries and those of the HeldSuarez, Aquaplanet,
-    # HSClimatology, physics standalone, Heartbeat and maintenance tasks
+    # HSClimatology, physics standalone, Heartbeat, maintenance and
+    # ScalingBench tasks
     tasks = {"HeldSuarez", "Aquaplanet", "HSClimatology", "FillQ2Zero",
              "Buoyancy", "EvapSublPdfLoop", "AerActivation",
              "GFDLMicrophysics", "MoistRadCoup", "CupGfSh", "Heartbeat",
-             "CIClean", "CIInfo"}
+             "CIClean", "CIInfo", "ScalingBench"}
     ported = sorted(name for name, raw in ref.items()
                     if set(raw.get("tasks", [])) & tasks)
-    assert len(ported) == 23
+    assert len(ported) == 24
     assert sorted(table) == sorted(["jw_baroclinic_c48",
                                     "jw_baroclinic_c48_fused",
                                     "jw_baroclinic_smoke"] + ported)

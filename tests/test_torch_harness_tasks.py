@@ -77,6 +77,7 @@ from geosongpu_tpu_torch.harness.tasks import \
     physics_standalone as t_phys  # noqa: E402
 from geosongpu_tpu_torch.models import aquaplanet as t_aq_model  # noqa: E402
 from geosongpu_tpu_torch.models import held_suarez as t_hs_model  # noqa: E402
+from geosongpu_tpu_torch.parallel import subtile as t_subtile  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
@@ -608,15 +609,27 @@ def test_declared_mesh_gives_the_reference_description(layout, monkeypatch):
     monkeypatch.setattr(j_subtile.jax, "devices", lambda *a: one)
     ref = j_subtile.build_mesh_stepper(SimpleNamespace(step_fn=None),
                                        JaxMesh(**layout), None)[3]
-    got = t_hs.mesh_description(MeshConfig(**layout), CPU)
+    model = SimpleNamespace(step=None, device=CPU)
+    got = t_subtile.build_mesh_stepper(model, MeshConfig(**layout))[3]
     assert got == ref and got.startswith("single-device (mesh ")
-    assert t_hs.mesh_description(MeshConfig(), CPU) == "single-device"
+    assert t_subtile.build_mesh_stepper(model, MeshConfig())[3] \
+        == "single-device"
 
 
-def test_mesh_the_host_could_hold_is_refused(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13"):
-        t_hs.mesh_description(MeshConfig(face=6), torch.device("cuda"))
+def test_mesh_the_host_could_hold_runs_sharded(tmp_path):
+    """held_suarez_c16_sharded through dispatch on 8 stacked CPU ranks:
+    the (2, 4) faces-local layout runs sharded, the record carries the
+    reference's mesh string, and the task's gates run on the unplaced
+    global state (tests/test_harness.py::test_sharded_experiment_dispatch)."""
+    env = t_task.dispatch("held_suarez_c16_sharded", "Validation",
+                          artifact_directory=str(tmp_path / "art"),
+                          workspace=str(tmp_path / "ws"), device="cpu",
+                          stacked_ranks=True)
+    rec = env.get("hs.record")
+    assert rec.extra["mesh"] == "subtile faces-local (2,4), 8 devices"
+    state = env.get("hs.final_state")
+    assert tuple(state.u.shape) == (6, 17, 16, 16)
+    assert bool(torch.isfinite(state.u).all())
 
 
 # ---- the climatology end to end -------------------------------------------

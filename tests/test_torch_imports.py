@@ -62,7 +62,9 @@ def test_sources_found():
         "harness/checkpoint.py", "harness/tasks/heartbeat.py",
         "harness/tasks/maintenance.py", "interop/__init__.py",
         "interop/argument.py", "interop/generator.py", "interop/cli.py",
-        "interop/dycore.py", "ops/column_patterns.py", "ops/remap.py")} | {
+        "interop/dycore.py", "ops/column_patterns.py", "ops/remap.py",
+        "parallel/comm.py", "parallel/subtile.py", "parallel/mesh.py",
+        "harness/tasks/scaling.py")} | {
             "chip_smoke.py"} <= names
 
 
@@ -186,8 +188,6 @@ def test_wrapper_on_cpu_runs_plain_version_and_counts_nothing():
 
 @pytest.mark.parametrize("change", [
     {"pallas_kt": 8},           # TPU vertical tiling
-    {"overlap_fills": True},
-    {"rim_split": True},
 ])
 def test_unported_options_raise(change):
     from geosongpu_tpu_torch.dycore.fv_dynamics import check_supported
@@ -202,6 +202,8 @@ def test_unported_options_raise(change):
     {"z_tracer": False},
     {"damping_exchange": "blend"},
     {"npx": 192},               # auto -> the blend form above npx 96
+    {"overlap_fills": True},
+    {"overlap_fills": True, "rim_split": True},
 ])
 def test_newly_supported_options(change):
     """Options that were refused until their kernels existed: the check
