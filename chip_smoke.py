@@ -27,7 +27,7 @@ Run it from copies of two trees in one call to compare their kernels;
 
     python3 chip_smoke.py --harness
 
-runs phases 1, 2 and 13 alone.
+runs phases 1, 2 and 13 alone, and `--tools` phases 1, 2 and 15.
 Without arguments, the phases:
 
 1. device: the card's name and power limit (nvidia-smi), the toolchain,
@@ -162,7 +162,24 @@ Without arguments, the phases:
    ms/step of both forms; every substep kernel and remap_banded against
    its plain version on the (2, 4) blocks, with its device time; then
    held_suarez_c16_sharded on 8 stacked ranks and scaling_bench through
-   dispatch.  `--sharded` runs phases 1, 2 and 14 alone.
+   dispatch.  `--sharded` runs phases 1, 2 and 14 alone;
+15. the tools on the card's output: (a) phase 9's fused case, card and CPU
+   written as .npz with state_to_numpy, through the port's validation CLI
+   (`validate CPU CARD VAR --rel_tol 1e-4` returns 0 for delp, pt and ps;
+   ua and va printed without a gate), and check_tolerance must refuse pt
+   + 0.5 K; (b) one fused c48-L72 step on the faces-local (2, 4) layout
+   from the JW06 flow, each of the 48 slots' centred fields (delp, pt, ps,
+   ua, va) written with write_fixture as the Serialbox rank of its face and
+   block, converted by `serialbox DIR OUT -l 4,2 -f npz` (SERIALBOX_PYTHON
+   at validation/serialbox_python, the reader of that layout) and equal to
+   the step's unplaced global fields bit for bit; (c) the tool scripts'
+   twins (geosongpu_tpu_torch/scripts/): bench_ladder's rungs c48 and c192
+   (5 timed steps, both finite), phase_profile and the roofline of the
+   fused c48-L72 preset (3 traced steps; each kernel's bytes a step within
+   1% of phase 3/4's bound bytes, the kernels' device time at most the
+   trace's busy time; printed also on the (2, 4) blocks) and the HS
+   climatology at c12-L20 over 1 + 1 days (finite (32, 20) means).
+   `--tools` runs phases 1, 2 and 15 alone.
 
 Phases 3 to 5 print the median time of 20 calls (10 at c192), kernel and
 plain.  The second-to-last line is the kernels JSON object, the last line
@@ -196,6 +213,15 @@ import subprocess
 import sys
 import time
 
+try:
+    # the bound's bytes and operations, as the roofline script counts them
+    from geosongpu_tpu_torch.benchmark.bounds import (METRICS_READ,
+                                                      OPS_PER_POINT, bound,
+                                                      moved_bytes, tensors_of)
+except ImportError as e:
+    sys.exit(f"chip_smoke FAILED: run from the root of a checkout with torch "
+             f"installed ({e})")
+
 REL_GATE = 1e-5          # kernel vs plain, relative to max |plain|
 COLUMN_GATE = 1e-4       # column-integrating kernels: relative, with a floor
 COLUMN_WIND_ATOL = 2e-3  # m/s (dsw_nh_pert: Pa, m2/s2, kg/m3)
@@ -206,8 +232,6 @@ SLICE_WIND_ATOL = 6e-3   # m/s
 # 3 steps on the CPU), so the gate there also admits NOISE_FACTOR times
 # that spread, measured in the same run
 NOISE_FACTOR = 2.0
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
 
 # kernel -> (source, the TPU kernel it replaces, column-integral gate?)
 KERNELS = {
@@ -251,48 +275,6 @@ EXACT = ("gfdl_microphysics", "fill_q2_zero", "cup_gf_sh", "aer_activation")
 # the pointwise column kernels, in the order --stages columns takes them
 POINTWISE = ("cup_gf_sh", "aer_activation", "evap_subl_pdf", "buoyancy",
              "moist_rad_coup")
-# Arithmetic of the plain version per output point, each PPM edge counted
-# once per cell (a ppm_flux ~33 operations with the hord-8 limiter, an
-# fvtp2d ~150 per field, a corner interpolation ~15, a column integral ~60
-# with pow and log as 20 each; gfdl_microphysics 13 exp, 4 pow and a sqrt at
-# 20 each plus ~25 divisions and ~120 other operations; cup_gf_sh one
-# theta_v with a pow and the two interfaces' mixing of two fields).  Every
-# kernel comes out bound by its bytes.
-OPS_PER_POINT = {
-    "remap_banded": 250, "dsw_csw1": 80, "dsw_csw2": 170,
-    "dsw_transport": 330, "dsw_transport nh": 650, "dsw_wind": 220,
-    "dsw_wind blend": 280, "dsw_wind nh": 345, "dsw_tracer_acc": 170,
-    "dsw_tracer": 165, "dsw_nh_pert": 70,
-    "gfdl_microphysics": 500, "fill_q2_zero": 6, "aer_activation": 70,
-    "moist_rad_coup": 35, "cup_gf_sh": 60, "buoyancy": 10,
-    "evap_subl_pdf": 80,
-}
-# The PaddedMetrics fields each kernel (and form) reads: the met(m, X, ...)
-# uses of its source and of the csrc/dsw_common.cuh stages it launches
-# (fvtp2d, hydro_columns).  The bound counts these metric arrays and no
-# other.  dsw_wind's rotational damping (VTX_METRICS)
-# is off in every preset and in the timed calls.
-FVTP2D_METRICS = ("area", "dx", "dy", "rdxc", "rdyc")
-WIND_METRICS = ("phis", "dw00", "dw01", "dw10", "dw11", "rsin2_cn",
-                "cosa_cn", "dx", "dy", "rdx", "rdy", "rdxc", "rdyc")
-VTX_METRICS = ("fcor", "dxc", "dyc")
-METRICS_READ = {
-    "remap_banded": (),
-    "dsw_csw1": ("cosa_i", "rsina_i", "cosa_j", "rsina_j", "rdxc", "rdyc",
-                 "dx", "dy", "rarea", "rsin2_c", "cosa_c", "fcor"),
-    "dsw_csw2": ("phis", "jwm", "jwp", "iwm", "iwp", "rdxc_c", "rdyc_c"),
-    "dsw_transport": FVTP2D_METRICS + ("rarea",),
-    "dsw_transport nh": FVTP2D_METRICS + ("rarea",),
-    "dsw_wind": WIND_METRICS,
-    "dsw_wind blend": WIND_METRICS + (
-        "div_blend", "rarea", "rarea_c", "cosa_i", "rsina_i", "cosa_j",
-        "rsina_j", "dxc", "dyc"),
-    "dsw_wind nh": WIND_METRICS,
-    "dsw_tracer_acc": FVTP2D_METRICS + ("rarea",),
-    "dsw_tracer": FVTP2D_METRICS + ("rarea",),
-    "dsw_nh_pert": (),
-    **{k: () for k in COLUMN_PHYSICS},
-}
 # __global__ stages of csrc/*.cu, as the profiler names them;
 # blend_divergence (the blend dsw_wind's separate pass before it was folded
 # into wind_update's tile) stays only while --stages must read an older tree
@@ -395,6 +377,19 @@ SHARDED_REPS = 3
 # (bench.py's configuration), stepped BRIDGE_STEPS times through the C host
 BRIDGE_PRESET = "held_suarez_c48_l72_fused"
 BRIDGE_STEPS = 3
+# phase 15, the tools on the card's output: the validation CLI's gate
+# (relative RMS, card against CPU) on these fields, the fields it prints
+# without one (winds: an absolute floor, SLICE_WIND_ATOL), the centred
+# fields written as Serialbox ranks (the converter stitches blocks without
+# dropping shared interfaces, so a staggered field would come back n + py
+# rows), and the twins' sizes
+TOOLS_REL_TOL = 1e-4
+TOOLS_GATED = ("delp", "pt", "ps")
+TOOLS_PRINTED = ("ua", "va")
+SERIALBOX_FIELDS = ("delp", "pt", "ps", "ua", "va")
+TOOLS_LADDER_STEPS = 5
+TOOLS_ROOFLINE_STEPS = 3
+TOOLS_BYTES_TOL = 0.01
 
 
 def fail(msg: str) -> None:
@@ -432,34 +427,6 @@ def displaced_coordinates(torch, lead, K, band, gen, device):
     pe2 = torch.gather(pe1, -1, idx) + (x - idx) * torch.gather(dp, -1, idx)
     pe2[..., 0], pe2[..., -1] = pe1[..., 0], pe1[..., -1]
     return pe1.float().contiguous(), pe2.float().contiguous()
-
-
-def bound(name, tensors_in, tensors_out, points=None):
-    """(ms by bytes, ms by operations) of one call: its inputs read and its
-    outputs written once against the card's memory rate, and
-    OPS_PER_POINT[name] operations per point (default: the points of its
-    largest output) against its float32 rate.  The bound is the larger."""
-    moved = sum(t.numel() * t.element_size()
-                for t in list(tensors_in) + list(tensors_out))
-    if points is None:
-        points = max(t.numel() for t in tensors_out)
-    return (moved / HBM_BYTES_PER_S * 1e3,
-            OPS_PER_POINT[name] * points / F32_FLOP_PER_S * 1e3)
-
-
-def tensors_of(torch, args, metric_names):
-    """The input tensors of a kernel call: its array arguments and, of a
-    PaddedMetrics argument, the fields in `metric_names` (each input
-    counted once, also where two arguments are one array)."""
-    seen, out = set(), []
-    for a in args:
-        if hasattr(a, "_fields"):
-            a = tuple(getattr(a, n) for n in metric_names)
-        for t in (a if isinstance(a, tuple) else (a,)):
-            if isinstance(t, torch.Tensor) and t.data_ptr() not in seen:
-                seen.add(t.data_ptr())
-                out.append(t)
-    return out
 
 
 def median_ms(torch, fn, reps=20, warm=3):
@@ -575,7 +542,7 @@ def check_kernels(torch, dsw, args, names, form, card, results, reps=20):
         k_ms = median_ms(torch, lambda: kern(*a), reps=reps)
         p_ms = median_ms(torch, lambda: plain(*a), reps=reps)
         by = bound(key if key in OPS_PER_POINT else kname,
-                   tensors_of(torch, a, METRICS_READ.get(
+                   tensors_of(a, METRICS_READ.get(
                        key, METRICS_READ[kname])), got)
         b_ms, b_by = max(by), ("bytes" if by[0] >= by[1] else "operations")
         results[key] = (err, k_ms, p_ms, b_ms, b_by)
@@ -687,7 +654,7 @@ def column_stages(torch, gate, kcol, kmic, dev, card):
             stage_view(torch, f"{name} {(ncol, K)}",
                        lambda: kern(*args), lambda: plain(*args), card,
                        name in EXACT, reps,
-                       lambda out: bound(name, tensors_of(torch, reads, ()),
+                       lambda out: bound(name, tensors_of(reads, ()),
                                          out))
         del d, a, q, dp, args, reads
         torch.cuda.empty_cache()
@@ -794,7 +761,7 @@ def check_column_kernel(torch, name, case, label, card, errors, results=None,
         return err, rel
     k_ms = median_ms(torch, lambda: kern(*args), reps=reps)
     p_ms = median_ms(torch, lambda: plain(*args), reps=reps)
-    by = bound(name, tensors_of(torch, reads, ()), got, points)
+    by = bound(name, tensors_of(reads, ()), got, points)
     b_ms, b_by = max(by), ("bytes" if by[0] >= by[1] else "operations")
     results[name] = (errors[name], k_ms, p_ms, b_ms, b_by)
     print(f"[kernel] {name} {label} {shape}: max abs err {err:.3e}, max rel "
@@ -1113,6 +1080,7 @@ def card_vs_cpu(torch, np, pname, dev, label, size=(12, 8, 2),
           + ("; the CPU's own max abs spread under one ulp of pt: "
              + ", ".join(f"{f} {spread[f]:.2e}" for f in fields)
              if spread else ""))
+    return a, b
 
 
 def profile_steps(torch, model, label, card, steps=2):
@@ -1946,6 +1914,7 @@ class Placed:
 
     def __init__(self, model, place, step):
         self.model, self.place, self._step = model, place, step
+        self.config, self.device = model.config, model.device
 
     def init(self, perturb):
         return self.place(self.model.init(perturb=perturb))
@@ -2114,6 +2083,214 @@ def run_sharded(torch, np, counters, build_model_for, card, results, dev):
     return launches
 
 
+def validate_card_against_cpu(torch, np, dev, tmp):
+    """Phase 15a: phase 9's fused case, card and CPU written as .npz and
+    compared through the port's validation CLI: delp, pt and ps within
+    TOOLS_REL_TOL relative RMS (exit code 0), ua and va printed only (the
+    winds are held to an absolute floor, SLICE_WIND_ATOL); then
+    check_tolerance on pt + 0.5 K must fail."""
+    from geosongpu_tpu_torch.validation import cli as vcli
+    from geosongpu_tpu_torch.validation.analysis import (check_tolerance,
+                                                         load_dataset)
+
+    cpu, card_state = card_vs_cpu(torch, np, "held_suarez_c48_l72_fused", dev,
+                                  "fused (for validation)")
+    paths = {}
+    for label, st in (("cpu", cpu), ("card", card_state)):
+        paths[label] = os.path.join(tmp, f"{label}.npz")
+        np.savez(paths[label], **st)
+    for var in TOOLS_GATED + TOOLS_PRINTED:
+        print(f"[tools] validate CPU {var} against the card's: ", end="",
+              flush=True)
+        argv = ["validate", paths["cpu"], paths["card"], var]
+        if var in TOOLS_GATED:
+            argv += ["--rel_tol", str(TOOLS_REL_TOL)]
+        if vcli.main(argv) != 0:
+            fail(f"geosongpu-tpu-torch-validation validate {var}: the card "
+                 f"is above {TOOLS_REL_TOL} relative RMS from the CPU")
+    ref, comp = load_dataset(paths["cpu"]), load_dataset(paths["card"])
+    if check_tolerance(ref, {**comp, "pt": comp["pt"] + 0.5}, ["pt"],
+                       rel_tol=TOOLS_REL_TOL):
+        fail("check_tolerance passed pt + 0.5 K")
+    print("[tools] check_tolerance refuses the card's pt + 0.5 K")
+
+
+def serialbox_blocks(torch, np, build_model_for, dev, tmp):
+    """Phase 15b: one fused c48-L72 step on the faces-local (2, 4) layout's
+    stacked ranks, each slot's centred fields written with write_fixture
+    as the Serialbox rank of its face and block, converted back through
+    the validation CLI; the result must equal the step's unplaced global
+    fields bit for bit."""
+    from geosongpu_tpu_torch.cli import PRESETS
+    from geosongpu_tpu_torch.core.config import MeshConfig
+    from geosongpu_tpu_torch.core.state import state_to_numpy
+    from geosongpu_tpu_torch.parallel.subtile import (build_mesh_stepper,
+                                                      layout_from_mesh)
+    from geosongpu_tpu_torch.validation import cli as vcli
+    from geosongpu_tpu_torch.validation import serialbox_python
+    from geosongpu_tpu_torch.validation.serialbox_binary import write_fixture
+
+    cfg = PRESETS[SHARDED_PRESET]
+    model = build_model_for(SHARDED_PRESET)(cfg, dev)
+    mesh = MeshConfig(face=1, y=2, x=4)
+    lay = layout_from_mesh(mesh, cfg.npx, cfg.halo)
+    place, step, unplace, desc = build_mesh_stepper(model, mesh, stacked=True)
+    out = step(place(flow_state(model)))
+    blocks = {f: getattr(out, f).cpu().numpy() for f in SERIALBOX_FIELDS}
+    want = state_to_numpy(unplace(out))
+    dat, conv = os.path.join(tmp, "dat"), os.path.join(tmp, "converted")
+    # slot d * 6 + face of the stacked blocks -> the converter's rank
+    # face * px * py + by * px + bx
+    for d in range(lay.ndevices):
+        _, by, bx = lay.dev_coords(d)
+        for face in range(lay.nslots):
+            rank = face * lay.px * lay.py + by * lay.px + bx
+            write_fixture(dat, f"Generator_rank{rank}", ["HeldSuarez-Out"],
+                          {f: [blocks[f][d * lay.nslots + face]]
+                           for f in SERIALBOX_FIELDS})
+    # the card's machine has no serialbox: the port's reader of its binary
+    # layout stands in for it (validation/serialbox_python)
+    before = os.environ.get("SERIALBOX_PYTHON")
+    os.environ["SERIALBOX_PYTHON"] = os.path.dirname(serialbox_python.__file__)
+    try:
+        rc = vcli.main(["serialbox", dat, conv, "-l", f"{lay.px},{lay.py}",
+                        "-f", "npz"])
+    finally:
+        if before is None:
+            del os.environ["SERIALBOX_PYTHON"]
+        else:
+            os.environ["SERIALBOX_PYTHON"] = before
+    if rc != 0:
+        fail("geosongpu-tpu-torch-validation serialbox failed")
+    got = np.load(os.path.join(conv, "HeldSuarez-Out.npz"))
+    diffs = {}
+    for f in SERIALBOX_FIELDS:
+        if got[f].shape != want[f].shape or got[f].dtype != want[f].dtype:
+            fail(f"serialbox {f}: {got[f].shape} {got[f].dtype}, the step's "
+                 f"{want[f].shape} {want[f].dtype}")
+        diffs[f] = float(np.abs(got[f].astype(np.float64) - want[f]).max())
+        if diffs[f] != 0.0:
+            fail(f"serialbox {f}: {diffs[f]:.3e} from the step's global field")
+    print(f"[tools] {desc}: {lay.ndevices * lay.nslots} slots of "
+          f"{lay.bny} x {lay.bnx} written as Serialbox ranks and converted "
+          f"(layout {lay.px},{lay.py}): max diff from the unplaced step "
+          + ", ".join(f"{f} {d}" for f, d in diffs.items()))
+
+
+def step_bytes(torch, np, model, dev):
+    """Phase 3/4's bytes a step of the fused c48-L72 path moves: each
+    substep kernel's bound bytes on kernel_inputs times its launches a
+    step, and remap_banded's over the step's three calls."""
+    from geosongpu_tpu_torch.ops.kernels import dsw
+
+    per_step = PATHS[SHARDED_PRESET][2]
+    args = kernel_inputs(torch, np, model, dev)
+    out = {}
+    for name, n in per_step.items():
+        if name == "remap_banded":
+            continue
+        got = getattr(dsw, name)(*args[name])
+        out[name] = n * moved_bytes(tensors_of(args[name],
+                                               METRICS_READ[name]), got)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out["remap_banded"] = sum(
+        moved_bytes(qs + [pe1, pe2], qs)
+        for _, qs, pe1, pe2 in remap_calls(torch, model.config,
+                                           model.config.npx, gen, dev))
+    return out
+
+
+def print_roofline(label, art, want, card):
+    """The roofline twin's artifact, a kernel a line; want: phase 3/4's
+    bytes a step by kernel, printed beside the twin's."""
+    print(f"[tools] roofline of {label}, {art['config']['steps']} steps: "
+          f"wall {art['wall_ms_per_step']:.2f} ms/step (with the recorder), "
+          f"device busy {art['device_busy_ms_per_step']:.3f} ms/step, the "
+          f"kernels {art['kernels_device_ms_per_step']:.3f} ({card})")
+    for name, k in art["kernels"].items():
+        n = k["launches_per_step"]
+        print(f"[tools]   {name}: {n:g} launches/step, "
+              f"{k['gbytes_per_step'] * 1e3:.3f} MB/step"
+              + (f" (phase 3/4: {want[name] / 1e6:.3f})" if name in want
+                 else "")
+              + f", device {k['device_ms_per_step']:.4f} ms/step = "
+              f"{k['device_ms_per_step'] / n:.4f} a launch, "
+              f"{k['achieved_gb_s']:.1f} GB/s = "
+              f"{100 * k['share_of_hbm']:.1f}% of 3.35 TB/s; bound "
+              f"{k['bound_ms_per_step'] / n:.4f} ms a launch by "
+              f"{k['bound_by']}")
+
+
+def run_tool_scripts(torch, np, build_model_for, card, dev):
+    """Phase 15c: the tool scripts' twins on the card: the ladder's two
+    rungs (finite), the phase profile and the roofline of the fused
+    c48-L72 preset (its bytes a step within TOOLS_BYTES_TOL of phase 3/4's,
+    its kernels inside the trace's busy time) and the climatology at
+    c12-L20 (finite (32, 20) means)."""
+    from geosongpu_tpu_torch.cli import PRESETS
+    from geosongpu_tpu_torch.core.config import DycoreConfig, MeshConfig
+    from geosongpu_tpu_torch.models.held_suarez import build_model
+    from geosongpu_tpu_torch.parallel.subtile import build_mesh_stepper
+    from geosongpu_tpu_torch.scripts import (bench_ladder, hs_climatology,
+                                             phase_profile, roofline)
+
+    for npx in (48, 192):
+        e = bench_ladder.run_rung(npx, 72, TOOLS_LADDER_STEPS, dev)
+        print(f"[tools] bench_ladder {json.dumps(e)}")
+        if not e["finite"]:
+            fail(f"bench_ladder c{npx}: {e['error']}")
+    torch.cuda.empty_cache()
+    phases = phase_profile.profile(SHARDED_PRESET, device="cuda")
+    print(f"[tools] phase_profile {json.dumps(phases)}")
+    model = build_model_for(SHARDED_PRESET)(PRESETS[SHARDED_PRESET], dev)
+    art = roofline.roofline(model, model.run(model.init(perturb=1e-3), 3),
+                            TOOLS_ROOFLINE_STEPS)
+    want = step_bytes(torch, np, model, dev)
+    print_roofline(SHARDED_PRESET, art, want, card)
+    for name, b in want.items():
+        got = art["kernels"].get(name, {}).get("gbytes_per_step", 0.0) * 1e9
+        if not abs(got - b) <= TOOLS_BYTES_TOL * b:
+            fail(f"roofline {name}: {got:.0f} bytes a step, phase 3/4 {b:.0f}")
+    if not (art["kernels_device_ms_per_step"]
+            <= art["device_busy_ms_per_step"]):
+        fail("roofline: the kernels' device time exceeds the trace's busy "
+             "time")
+    # the same on the faces-local (2, 4) blocks (PERF.md rows "s")
+    place, step, _, desc = build_mesh_stepper(
+        model, MeshConfig(face=1, y=2, x=4), stacked=True)
+    stacked = Placed(model, place, step)
+    print_roofline(f"{SHARDED_PRESET} on {desc} stacked", roofline.roofline(
+        stacked, stacked.run(stacked.init(perturb=1e-3), 3),
+        TOOLS_ROOFLINE_STEPS), {}, card)
+    del model, stacked, place, step
+    torch.cuda.empty_cache()
+    clim = build_model(DycoreConfig(npx=12, npz=20, dt=900.0, n_split=6),
+                       dev)
+    ubar, tbar, edges, nsamp = hs_climatology.climatology(
+        clim, clim.init(perturb=0.1), days=2.0, spinup=1.0)
+    for name, a in (("ubar", ubar), ("tbar", tbar)):
+        if a.shape != (hs_climatology.NBINS, 20) or not np.isfinite(a).all():
+            fail(f"climatology {name}: shape {a.shape} or not finite")
+    jet, trop = hs_climatology.jet_and_tropics(ubar, edges)
+    print(f"[tools] hs_climatology c12-L20, 1 + 1 days, {nsamp} samples: "
+          f"ubar, tbar (32, 20) finite; jet {jet:.2f} m/s, tropical surface "
+          f"u {trop:.2f} m/s (not gated) ({card})")
+
+
+def run_tools(torch, np, build_model_for, card, dev):
+    """Phase 15, the tools on the card's output."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        validate_card_against_cpu(torch, np, dev, tmp)
+        serialbox_blocks(torch, np, build_model_for, dev, tmp)
+    torch.cuda.empty_cache()
+    run_tool_scripts(torch, np, build_model_for, card, dev)
+    print(f"[tools] phase 15: {time.perf_counter() - t0:.1f} s ({card})")
+
+
 T_START = time.perf_counter()
 
 
@@ -2178,6 +2355,9 @@ def main() -> int:
         return 0
     if "--sharded" in sys.argv[1:]:
         run_sharded(torch, np, counters, build_model_for, card, {}, dev)
+        return 0
+    if "--tools" in sys.argv[1:]:
+        run_tools(torch, np, build_model_for, card, dev)
         return 0
     if "--stages" in sys.argv[1:]:
         if "columns" not in sys.argv[1:]:
@@ -2342,6 +2522,9 @@ def main() -> int:
     # ---- 14. the sharded step on stacked ranks ---------------------------
     launches["blocks"] = run_sharded(torch, np, counters, build_model_for,
                                      card, results, dev)
+
+    # ---- 15. the tools on the card's output -------------------------------
+    run_tools(torch, np, build_model_for, card, dev)
 
     # each entry: (key of results, kernel, path whose launches it reports)
     entries = [(k, k, "fused") for k in list(KERNELS)[:6]] + [

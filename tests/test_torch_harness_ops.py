@@ -78,11 +78,48 @@ def _definitions(path):
 
 @pytest.mark.parametrize("module", ["harness/shell.py",
                                     "harness/tasks/heartbeat.py",
-                                    "interop/argument.py"])
+                                    "interop/argument.py",
+                                    "validation/analysis.py",
+                                    "validation/serialbox_binary.py",
+                                    "validation/serialbox_convert.py",
+                                    "plots/__init__.py", "plots/colors.py",
+                                    "plots/plot_field.py",
+                                    "plots/dashboard.py",
+                                    "plots/dashboard_server.py",
+                                    "benchmark/plots.py",
+                                    "utils/project_summary.py"])
 def test_copied_module_equals_the_original(module):
     """Copies differ from their originals in docstrings alone."""
     assert _without_docstrings(ast.parse((PORT / module).read_text())) == \
         _without_docstrings(ast.parse((REF / module).read_text()))
+
+
+def _prog_named(path, name):
+    """The file's definitions with the `prog=` of every call set to
+    `name`."""
+    defs = _definitions(path)
+    for node in defs.values():
+        for n in ast.walk(node):
+            for kw in getattr(n, "keywords", ()):
+                if kw.arg == "prog":
+                    kw.value = ast.Constant(name)
+    return defs
+
+
+@pytest.mark.parametrize("module,prog", [
+    ("validation/cli.py", "geosongpu-tpu-torch-validation"),
+    ("plots/cli.py", "geosongpu-tpu-torch-plots")])
+def test_copied_cli_equals_the_original_but_its_prog(module, prog):
+    """The two CLIs differ from their originals in docstrings and in the
+    program name they print."""
+    port, ref = _definitions(PORT / module), _definitions(REF / module)
+    progs = {kw.value.value for n in ast.walk(port["main"])
+             for kw in getattr(n, "keywords", ()) if kw.arg == "prog"}
+    assert progs == {prog}
+    port, ref = _prog_named(PORT / module, "P"), _prog_named(REF / module, "P")
+    assert port.keys() == ref.keys() == {"main"}
+    assert _without_docstrings(port["main"]) == \
+        _without_docstrings(ref["main"])
 
 
 def test_jobqueue_shares_the_reference_local_path():
