@@ -9,8 +9,8 @@ on any failure (and when no CUDA device is present).
     python3 chip_smoke.py --stages
 
 runs phases 1 and 2 and then only the per-stage view of the fvtp2d
-callers, dsw_csw1, dsw_nh_pert and the blend dsw_wind at c192-L72
-(STAGE_KERNELS), of remap_banded at
+callers, dsw_csw1, dsw_nh_pert, nh_vertical_solve and the blend dsw_wind
+at c192-L72 (STAGE_KERNELS), of remap_banded at
 the three calls of a c48-L72 and a c192-L72 step, and of the column
 kernels on the gate's sounding at 128 x 40, 13,824 x 32 and 221,184 x 72
 (COLUMN_STAGES): gfdl_microphysics, the fill of three tracers (three
@@ -44,12 +44,15 @@ Without arguments, the phases:
    outputs, on inputs from a real state (init + 2 steps, then the substep
    chain of plain versions): the five hydrostatic kernels at c48-L72; the
    nonhydrostatic forms (dsw_transport with w and delz, dsw_tracer,
-   dsw_nh_pert, dsw_wind with the p', phi', rho terms) at c48-L72 on a
-   nonhydrostatic state; at c192-L72, where the card and not the host
-   sets the time, the five kernels the c192 preset launches (dsw_wind in
-   its blend form); dsw_csw2 and dsw_wind on the JW06 preset's inputs
-   (perturbed init + 2 steps, its balancing terrain in the metrics), where
-   each must equal its plain version (0.0).
+   dsw_nh_pert, dsw_wind with the p', phi', rho terms) and
+   nh_vertical_solve (the vertical glue between them, equal to its plain
+   version in every element over every column, NaN only where the plain
+   version has NaN) at c48-L72 on a nonhydrostatic state; at c192-L72,
+   where the card and not the host sets the time, the five kernels the
+   c192 preset launches (dsw_wind in its blend form); dsw_csw2 and
+   dsw_wind on the JW06 preset's inputs (perturbed init + 2 steps, its
+   balancing terrain in the metrics), where each must equal its plain
+   version (0.0).
    dsw_csw1, dsw_transport, dsw_tracer and dsw_tracer_acc within 1e-5 of
    max|plain|; dsw_csw2, dsw_wind and dsw_nh_pert within max(1e-4
    max|plain|, 2e-3), for the column-sum order;
@@ -81,7 +84,8 @@ Without arguments, the phases:
    presets also pass the aquaplanet task's physical gates (vapour in
    [-1e-6, 0.06], surface pressure in (5e4, 1.2e5) Pa) and moisten;
 8. a torch.profiler window of 2 steps of each preset: device busy time,
-   device events per step and the top device kernels;
+   device events per step and the top device kernels, and each preset's
+   idle share (1 - busy / phase 7's ms/step);
 9. card against CPU: 3 steps at c12-L8 from one numpy state, the two c48
    hydrostatic presets, the nonhydrostatic preset and the blend form; the
    fused aquaplanet preset at c8-L12 from a moist-perturbed state (ql and
@@ -201,7 +205,11 @@ kernel counts only the arrays its formula reads (aer_activation takes t and
 p and moist_rad_coup and buoyancy take p without reading them).  No single
 PyTorch call computes any of these stencil and column functions - the
 column physics are chains of tens of elementwise operations with a
-recurrence down the column - so library_ms is null throughout.
+recurrence down the column, and PyTorch has no batched tridiagonal solver
+for nh_vertical_solve (a dense torch.linalg.solve is another function) -
+so library_ms is null throughout.  nh_vertical_solve replaces no Pallas
+kernel: its "replaces" names the reference's lax.scan pair, which runs the
+same solve on the TPU as XLA glue.
 """
 import contextlib
 import dataclasses
@@ -251,6 +259,8 @@ KERNELS = {
                    False),
     "dsw_nh_pert": ("dsw_nh_pert.cu", "geosongpu_tpu/dycore/sw_pallas.py:82",
                     True),
+    "nh_vertical_solve": ("nh_vertical_solve.cu",
+                          "geosongpu_tpu/dycore/nh_solver.py:57", False),
     "gfdl_microphysics": ("gfdl_microphysics.cu",
                           "geosongpu_tpu/ops/pallas/microphysics.py:152",
                           False),
@@ -268,7 +278,10 @@ KERNELS = {
                       "geosongpu_tpu/ops/pallas/standalone_twins.py:133",
                       False),
 }
-COLUMN_PHYSICS = list(KERNELS)[8:]
+COLUMN_PHYSICS = list(KERNELS)[list(KERNELS).index("gfdl_microphysics"):]
+# the kernels that must equal their plain versions in every element, NaN
+# only where the plain version has NaN (the substep's padded columns)
+NAN_AS_PLAIN = ("nh_vertical_solve",)
 # the column kernels that must equal their plain versions in every element
 # (the other three keep REL_GATE)
 EXACT = ("gfdl_microphysics", "fill_q2_zero", "cup_gf_sh", "aer_activation")
@@ -282,6 +295,7 @@ PORT_STAGES = ("::csw1(", "::csw2_winds(", "::fvtp2d_tile<",
                "::transport_update(", "::nh_transport_update(",
                "::tracer_update(", "::tracer_sub_update(", "::wind_update<",
                "::blend_divergence(", "::hydro_columns(", "::nh_columns(",
+               "::nh_vertical_columns(",
                "::remap_banded_kernel<", "::gfdl_microphysics_columns(",
                "::fill_q2_zero_columns(", "::aer_activation_points",
                "::moist_rad_coup_points(", "::cup_gf_sh_points(",
@@ -291,7 +305,8 @@ STAGE_KERNELS = {
     "held_suarez_c48_l72": ("c48", ["dsw_csw1", "dsw_transport",
                                     "dsw_tracer_acc"], 2),
     "held_suarez_c48_l72_nh_fused": ("nh", ["dsw_transport", "dsw_tracer",
-                                            "dsw_nh_pert"], 2),
+                                            "dsw_nh_pert",
+                                            "nh_vertical_solve"], 2),
     "held_suarez_c192_l72_fused": ("c192", ["dsw_csw1", "dsw_transport",
                                             "dsw_tracer_acc", "dsw_wind"],
                                    1),
@@ -320,7 +335,8 @@ PATHS = {
         "dsw_tracer_acc": 2, "remap_banded": 3}),
     "held_suarez_c48_l72_nh_fused": ("nh", 5, {
         "dsw_csw1": 6, "dsw_csw2": 6, "dsw_transport": 6, "dsw_wind": 6,
-        "dsw_tracer": 6, "dsw_nh_pert": 6, "remap_banded": 3}),
+        "dsw_tracer": 6, "dsw_nh_pert": 6, "nh_vertical_solve": 6,
+        "remap_banded": 3}),
     # c48-L32, three tracers: dsw_tracer_acc 3 tracers x q_split 2; the
     # remap takes pt and the three tracers in one call, then u, then v;
     # the physics fills qv, ql and qr in one launch, mixes by cup_gf_sh and
@@ -481,6 +497,27 @@ def compare(name, got, want, column_gate):
     return worst_abs, worst_rel
 
 
+def equal_to_plain(label, got, want):
+    """Fails unless every output equals its plain version in every element,
+    a NaN counting as equal where the plain version has NaN (and nowhere
+    else).  Returns the number of NaN both hold."""
+    nans = 0
+    for n, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape:
+            fail(f"{label} output {n}: shape {tuple(g.shape)} vs plain "
+                 f"{tuple(w.shape)}")
+        both = g.isnan() & w.isnan()
+        same = (g == w) | both
+        if not bool(same.all()):
+            d = (g - w).abs()[~same]
+            fail(f"{label} output {n}: {int((~same).sum())} elements differ "
+                 f"from the plain version (max {float(d.max()):.3e}; NaN in "
+                 f"kernel {int(g.isnan().sum())}, plain "
+                 f"{int(w.isnan().sum())})")
+        nans += int(both.sum())
+    return nans
+
+
 def kernel_inputs(torch, np, model, dev, steps=2, sharded=None):
     """{kernel name: args} at the model's shapes from a real state: init
     (3 K of pt noise, a tracer 1 + 0.2 U[0,1); JW06: the perturbed
@@ -538,7 +575,14 @@ def check_kernels(torch, dsw, args, names, form, card, results, reps=20):
         got, want = kern(*a), plain(*a)
         torch.cuda.synchronize()
         key = f"{kname} {form}".strip()
-        err, rel = compare(key, got, want, KERNELS[kname][2])
+        if kname in NAN_AS_PLAIN:
+            nans = equal_to_plain(key, got, want)
+            err = rel = 0.0
+            print(f"[kernel] {key}: equal to its plain version in every "
+                  f"element of {sum(g.numel() for g in got)} ({nans} NaN "
+                  f"in both)")
+        else:
+            err, rel = compare(key, got, want, KERNELS[kname][2])
         k_ms = median_ms(torch, lambda: kern(*a), reps=reps)
         p_ms = median_ms(torch, lambda: plain(*a), reps=reps)
         by = bound(key if key in OPS_PER_POINT else kname,
@@ -566,18 +610,22 @@ def device_times(prof):
 
 
 def stage_view(torch, label, kern, plain, card, exact, reps=20,
-               bound_of=None):
+               bound_of=None, nan_as_plain=False):
     """--stages: one kernel call against its plain version (0.0 with
     `exact`, else within REL_GATE), its median time over `reps` calls, and
     the device time per launch of each __global__ it runs and of all its
     device work per call in a profiler window of 10 calls; with
     `bound_of(outputs) -> (ms by bytes, ms by operations)`, also the bound
-    and the share of it that the device time reaches."""
+    and the share of it that the device time reaches.  nan_as_plain: exact,
+    a NaN allowed where the plain version has one (equal_to_plain)."""
     from torch.profiler import ProfilerActivity, profile
 
     got, want = outputs_of(kern()), outputs_of(plain())
     torch.cuda.synchronize()
-    if exact:
+    if nan_as_plain:
+        equal_to_plain(label, got, want)
+        err = 0.0
+    elif exact:
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         if err != 0.0:
             fail(f"{label}: {err:.3e} from its plain version")
@@ -615,7 +663,7 @@ def stage_times(torch, dsw, args, names, form, card, reps=20):
         stage_view(torch, f"{name} {form} {tuple(a[0].shape)}",
                    lambda: getattr(dsw, name)(*a),
                    lambda: getattr(dsw, name + "_plain")(*a), card, True,
-                   reps)
+                   reps, nan_as_plain=name in NAN_AS_PLAIN)
 
 
 def column_stages(torch, gate, kcol, kmic, dev, card):
@@ -1085,7 +1133,8 @@ def card_vs_cpu(torch, np, pname, dev, label, size=(12, 8, 2),
 
 def profile_steps(torch, model, label, card, steps=2):
     """Device time, device events and the top ops over `steps` steps, after
-    one profiled step that absorbs the profiler's own start-up."""
+    one profiled step that absorbs the profiler's own start-up.  Returns
+    (device busy ms/step, device events/step)."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -1124,6 +1173,7 @@ def profile_steps(torch, model, label, card, steps=2):
     for name, (t, c) in top:
         print(f"[profile]   {t / steps / 1e3:8.3f} ms/step {c / steps:7.0f}"
               f"/step  {name[:90]}")
+    return busy, n_events / steps
 
 
 def check_jw_steady_day(torch, dev, card):
@@ -2438,8 +2488,9 @@ def main() -> int:
                          dev)
     check_kernels(torch, dsw, args, ["dsw_transport", "dsw_wind"], "nh", card,
                   results)
-    check_kernels(torch, dsw, args, ["dsw_tracer", "dsw_nh_pert"], "", card,
-                  results)
+    check_kernels(torch, dsw, args,
+                  ["dsw_tracer", "dsw_nh_pert", "nh_vertical_solve"], "",
+                  card, results)
     args = kernel_inputs(torch, np, model_of("held_suarez_c192_l72_fused"),
                          dev, steps=1)
     check_kernels(torch, dsw, args, ["dsw_wind"], "blend", card, results,
@@ -2483,8 +2534,15 @@ def main() -> int:
         + f" ({card})")
 
     # ---- 8. profiler window ---------------------------------------------
+    idle = {}
     for pname, (label, _, _) in PATHS.items():
-        profile_steps(torch, model_of(pname), label, card)
+        busy, events = profile_steps(torch, model_of(pname), label, card)
+        idle[label] = (step_ms[label], busy, events,
+                       1.0 - busy / step_ms[label])
+    print("[main] ms/step (phase 7), device busy ms/step, device events/step"
+          " and idle share: " + ", ".join(
+              f"{label} {ms:.2f}, {b:.2f}, {e:.0f}, {100 * i:.1f}%"
+              for label, (ms, b, e, i) in idle.items()) + f" ({card})")
     models.clear()
     torch.cuda.empty_cache()
 
@@ -2533,6 +2591,7 @@ def main() -> int:
         ("dsw_wind nh", "dsw_wind", "nh"),
         ("dsw_tracer", "dsw_tracer", "nh"),
         ("dsw_nh_pert", "dsw_nh_pert", "nh"),
+        ("nh_vertical_solve", "nh_vertical_solve", "nh"),
         ("gfdl_microphysics", "gfdl_microphysics", "aqua"),
         ("fill_q2_zero", "fill_q2_zero", "aqua")] + [
         (k, k, "aqua" if k == "cup_gf_sh" else "gate")

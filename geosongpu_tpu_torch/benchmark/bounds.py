@@ -23,13 +23,19 @@ F32_FLOP_PER_S = 67e12   # float32 outside the tensor cores (data sheet)
 # fvtp2d ~150 per field, a corner interpolation ~15, a column integral ~60
 # with pow and log as 20 each; gfdl_microphysics 13 exp, 4 pow and a sqrt at
 # 20 each plus ~25 divisions and ~120 other operations; cup_gf_sh one
-# theta_v with a pow and the two interfaces' mixing of two fields).  Every
-# kernel comes out bound by its bytes.
+# theta_v with a pow and the two interfaces' mixing of two fields;
+# nh_vertical_solve, from its plain version dycore/sw.py::nh_vertical_glue
+# per layer: the gas-law anchor ~56 (pe sum, scaling, pow and log, pkz 4,
+# T, clamp, rho 2, p0 2, p_mid 2), interface w 2, then each of the two
+# Newton linearisations ~61 (clamp, the ratio, pow, p* 1, s 2, p' 4, rho
+# 2, rho_i 2, dz_i 2, alpha 3, dt s 2, b 3, a 2, c 2, rhs 3, the forward
+# sweep 6 with two divisions, the back substitution 2, z* 3), the clamp
+# and layer w 3: ~180).  Every kernel comes out bound by its bytes.
 OPS_PER_POINT = {
     "remap_banded": 250, "dsw_csw1": 80, "dsw_csw2": 170,
     "dsw_transport": 330, "dsw_transport nh": 650, "dsw_wind": 220,
     "dsw_wind blend": 280, "dsw_wind nh": 345, "dsw_tracer_acc": 170,
-    "dsw_tracer": 165, "dsw_nh_pert": 70,
+    "dsw_tracer": 165, "dsw_nh_pert": 70, "nh_vertical_solve": 180,
     "gfdl_microphysics": 500, "fill_q2_zero": 6, "aer_activation": 70,
     "moist_rad_coup": 35, "cup_gf_sh": 60, "buoyancy": 10,
     "evap_subl_pdf": 80,
@@ -61,6 +67,7 @@ METRICS_READ = {
     "dsw_tracer_acc": FVTP2D_METRICS + ("rarea",),
     "dsw_tracer": FVTP2D_METRICS + ("rarea",),
     "dsw_nh_pert": (),
+    "nh_vertical_solve": (),
     **{k: () for k in COLUMN_KERNELS},
 }
 

@@ -31,11 +31,12 @@ import torch
 from ..device import synchronize
 from ..dycore.fv_dynamics import (_advect_tracers_accumulated, _remap_winds,
                                   _use_exchange)
-from ..dycore.nh_solver import hydrostatic_delz, vertical_acoustic_solve
+from ..dycore.nh_solver import hydrostatic_delz
 from ..dycore.sw import (_hydrostatic_fields, c_sw, d_sw_substep,
                          damping_divergence, fill_substep, transport_part,
                          wind_part)
 from ..dycore.sw_fused import d_sw_substep_fused
+from ..ops.kernels.dsw import nh_vertical_solve
 from ..ops.vertical import interfaces_from_delp
 from ..physics.held_suarez import held_suarez_forcing
 
@@ -233,17 +234,17 @@ def measure_phases(model, state, inner: int = 30,
             stage_tracer, (state.q,)) * cfg.k_split
 
     if not cfg.hydrostatic:
-        delz0 = torch.clamp(state.delz.abs() + 1.0, min=1.0)
-        w_if0 = torch.zeros(state.delp.shape[:-1]
-                            + (state.delp.shape[-1] + 1,),
-                            dtype=state.delp.dtype, device=device)
+        # the substep's vertical glue (nh_vertical_solve, a kernel on the
+        # card) on padded fields as the transport hands them over
+        st_nh = fill_substep(ops, state.u, state.v, state.delp, state.pt,
+                             chart=chart, **nh)
 
-        def stage_nh(w_if, delz):
-            return vertical_acoustic_solve(w_if, delz, state.pt, state.delp,
-                                           dt_ac, cfg.ptop)
+        def stage_nh(w, delz):
+            return nh_vertical_solve(w, delz, st_nh.pt_x, st_nh.pd_x, dt_ac,
+                                     cfg.ptop)
 
         stage_phases["nh vertical solve (xN)"] = timed(
-            stage_nh, (w_if0, delz0)) * n_sub
+            stage_nh, (st_nh.pw_x, st_nh.pz_x)) * n_sub
 
     # the remap block of a step's remap interval, as the step runs it: one
     # multi-field call on pt, the tracers (and w and the specific volume

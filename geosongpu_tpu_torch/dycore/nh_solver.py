@@ -4,10 +4,13 @@ The vertically implicit solve of the nonhydrostatic core: it advances the
 vertically propagating acoustic/buoyancy dynamics of each column with a
 backward-Euler scheme, which reduces to one tridiagonal solve per column.
 The reference runs it as two `lax.scan`s over K in the glue between its
-kernels, not as a kernel; here it is plain PyTorch too: a Python loop over
-the K-1 interior interfaces, forward and backward, vectorised over all
-columns.  The loop issues a handful of small launches per interface, so on
-a card the nonhydrostatic step is bound by the host.
+kernels, which its compiler keeps on the device.  Here the functions are
+the plain PyTorch form: a Python loop over the K-1 interior interfaces,
+forward and backward, vectorised over all columns, a handful of small
+launches an interface.  The substeps run them only on the CPU: on the
+card the glue that calls them (dycore/sw.py::nh_vertical_glue) is one
+launch of the hand kernel nh_vertical_solve (ops/kernels/dsw.py,
+csrc/nh_vertical_solve.cu), and these functions are its plain version.
 
 Column model (TOA -> surface index order, rigid lid and ground):
   interfaces carry w [.., K+1] (w[0] = w[K] = 0), layers carry

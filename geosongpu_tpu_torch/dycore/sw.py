@@ -6,13 +6,14 @@ transports delp/pt with PPM fluxes and updates the D-grid winds with the
 vorticity flux, the corner KE gradient, divergence damping (the exchange
 form or the in-kernel blend) and the backward PGF.  In nonhydrostatic
 mode the transport also carries w and delz, the implicit vertical
-acoustic solve (nh_solver.py) follows it, and the PGF gains the p', phi'
-and rho terms of the solved state; with advect_tracers the tracers ride
-every substep.  All functions work on padded [6, J, I, K] tensors and keep
-the reference's names, so each one has a counterpart to be held against.
-The functions are the plain PyTorch versions of the substep kernels
-dsw_csw1 (c_sw_part1), dsw_csw2 (c_sw_part2), dsw_transport
-(transport_part) and dsw_wind (wind_part, nh_perturbation_fields).
+acoustic solve (nh_solver.py) follows it, and the PGF gains the p',
+phi' and rho terms of the solved state; with advect_tracers the tracers
+ride every substep.  All functions work on padded [6, J, I, K] tensors and
+keep the reference's names, so each one has a counterpart to be held
+against.  The functions are the plain PyTorch versions of the substep
+kernels dsw_csw1 (c_sw_part1), dsw_csw2 (c_sw_part2), dsw_transport
+(transport_part), dsw_wind (wind_part, nh_perturbation_fields) and
+nh_vertical_solve (nh_vertical_glue).
 
 Not here: the rim-split c_sw, which only pays where the D-grid exchange
 can overlap the core (an asynchronous transport across devices; the
@@ -687,7 +688,9 @@ def nh_vertical_glue(w_adv, delz_adv, pt_new, delp_new, dt: float,
     update: interface w of the advected layer w (rigid lid and ground),
     the implicit acoustic solve, delz clamped at 1 m (as the advected
     delz is: the linearised solve may overshoot under extreme forcing),
-    layer w again.  Returns (w_new, delz_new), padded."""
+    layer w again.  Returns (w_new, delz_new), padded.  The plain version
+    of the nh_vertical_solve kernel (ops/kernels/dsw.py), which both
+    substep forms call."""
     zeros_if = torch.zeros_like(w_adv[..., :1])
     w_if = torch.cat(
         [zeros_if, 0.5 * (w_adv[..., :-1] + w_adv[..., 1:]), zeros_if],
@@ -734,10 +737,14 @@ def d_sw_substep(s: SWState, m: PaddedMetrics, ops: HaloOps, dt: float,
     pt_f = refill(pt_new[islice])
     nonhydro = s.pz_x is not None
     if nonhydro:
-        # the implicit vertical solve, then the backward nonhydrostatic
-        # pressure force from the solved fields
-        w_new, delz_new = nh_vertical_glue(w_adv, delz_adv, pt_new,
-                                           delp_new, dt, ptop)
+        # the implicit vertical solve (its kernel on the card: the
+        # reference runs this glue on its device in both substep forms),
+        # then the backward nonhydrostatic pressure force from the solved
+        # fields
+        from ..ops.kernels.dsw import nh_vertical_solve
+
+        w_new, delz_new = nh_vertical_solve(w_adv, delz_adv, pt_new,
+                                            delp_new, dt, ptop)
         delz_f = refill(delz_new[islice])
         nh_fields = nh_perturbation_fields(delp_f, pt_f, delz_f, ptop)
     else:

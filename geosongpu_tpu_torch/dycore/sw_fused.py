@@ -3,7 +3,7 @@
 `d_sw_substep_fused` runs one acoustic substep as the JAX package's
 d_sw_substep_pallas does (sw_pallas.py:432-723), with its face kernels as
 the CUDA kernels of ops/kernels/dsw.py and the glue between them in
-PyTorch:
+PyTorch (the nonhydrostatic vertical solve a kernel of its own):
 
 1. A-grid winds and the chart reconstruction of their corners;
 2. dsw_csw1 (C-grid winds, half-step delp/pt, KE, vorticity);
@@ -14,7 +14,8 @@ PyTorch:
 6. dsw_transport (delp, pt, mass fluxes; nonhydrostatic: w and delz too);
 7. dsw_tracer once per tracer (advect_tracers, the per-substep tracers);
 8. refill of delp/pt (halo fill + chart correction);
-9. nonhydrostatic: the implicit vertical solve and the refill of delz;
+9. nonhydrostatic: nh_vertical_solve (interface w, the implicit vertical
+   solve, layer w) and the refill of delz;
 10. dsw_wind (column integrals of the refilled state folded in, with
     dsw_nh_pert first in nonhydrostatic mode; u/v).
 
@@ -32,7 +33,7 @@ import torch
 from ..ops.kernels import dsw
 from ..parallel.halo import HaloOps
 from .sw import (PaddedMetrics, StagResample, SubstepOut, SWState,
-                 a_grid_winds, damping_divergence, nh_vertical_glue)
+                 a_grid_winds, damping_divergence)
 
 
 def d_sw_substep_fused(s: SWState, m: PaddedMetrics, ops: HaloOps,
@@ -117,8 +118,8 @@ def _substep(s, m, ops, dt, ptop, hord, d2_bg, advect_tracers, hord_mt,
     delp_f = refill(delp_new[islice])
     pt_f = refill(pt_new[islice])
     if nonhydro:
-        w_new, delz_new = nh_vertical_glue(outs[4], outs[5], pt_new,
-                                           delp_new, dt, ptop)
+        w_new, delz_new = call("nh_vertical_solve", outs[4], outs[5],
+                               pt_new, delp_new, dt, ptop)
         delz_f = refill(delz_new[islice])
     else:
         w_new = delz_new = delz_f = None

@@ -6,9 +6,13 @@ nonhydrostatic with w and delz), dsw_tracer and dsw_wind
 (d_sw_substep_pallas k1-k4 and k3b; dsw_wind with either damping form and
 with the nonhydrostatic PGF terms), dsw_nh_pert (_nh_pert_kernel, the
 column stage the nonhydrostatic dsw_wind runs first) and dsw_tracer_acc
-(tracer_interval_advect_pallas).  For each: the wrapper, its `launches`
-counter and its plain PyTorch version `<name>_plain`, which has the
-wrapper's signature and composes the port's dycore/sw.py functions.
+(tracer_interval_advect_pallas); and nh_vertical_solve
+(csrc/nh_vertical_solve.cu), the nonhydrostatic substep's vertical glue
+between dsw_transport and dsw_wind, which the reference runs as XLA glue
+(sw_pallas.py:618-630: the lax.scan pair of dycore/nh_solver.py) and not as
+a Pallas kernel.  For each: the wrapper, its `launches` counter and its
+plain PyTorch version `<name>_plain`, which has the wrapper's signature and
+composes the port's dycore/sw.py functions.
 
 A wrapper given CPU tensors runs the plain version.  Given CUDA tensors it
 checks device, dtype, shape and contiguity of every input (the 36
@@ -18,6 +22,8 @@ the current stream and raises on a nonzero CUDA error; `launches` grows by
 one per C entry, whatever its internal stages.  Arrays are [F, Ny, Nx, K]
 centres, [F, Ny, Nx+1, K] x-interfaces, [F, Ny+1, Nx, K] y-interfaces and
 [F, Ny+1, Nx+1, K] corners; F, Ny, Nx and K come from the inputs.
+nh_vertical_solve checks its inputs on either device, so that the CPU
+tests hold its checks too.
 """
 from __future__ import annotations
 
@@ -26,9 +32,10 @@ import ctypes
 import torch
 
 from ...core.grid import CP_AIR, GRAV, KAPPA, RDGAS
+from ...dycore.nh_solver import GAMMA
 from ...dycore.sw import (P00, PaddedMetrics, SWState, _hydrostatic_fields,
                           c_sw_part1, c_sw_part2, nh_perturbation_fields,
-                          transport_part, wind_part)
+                          nh_vertical_glue, transport_part, wind_part)
 from ..fvtp2d import ddx, ddy, fvtp2d
 from .build import check_tensors as _check
 from .build import device_of as _device
@@ -113,6 +120,13 @@ def dsw_tracer_plain(qx, qy, pd_x, delp_new, uct, vct, mfx, mfy,
 def dsw_nh_pert_plain(delp_f, pt_f, delz_f, ptop: float):
     """-> (pprime, phiprime, rho1) of the solved nonhydrostatic state."""
     return nh_perturbation_fields(delp_f, pt_f, delz_f, ptop)
+
+
+def nh_vertical_solve_plain(w_adv, delz_adv, pt_new, delp_new, dt: float,
+                            ptop: float):
+    """-> padded (w_new, delz_new): interface w, the implicit vertical
+    acoustic solve, delz clamped at 1 m, layer w."""
+    return nh_vertical_glue(w_adv, delz_adv, pt_new, delp_new, dt, ptop)
 
 
 def dsw_wind_plain(pu, pv, uct, vct, delp_f, pt_f, vort, div_c,
@@ -330,6 +344,33 @@ def dsw_nh_pert(delp_f, pt_f, delz_f, ptop: float):
     return outs
 
 
+def nh_vertical_solve(w_adv, delz_adv, pt_new, delp_new, dt: float,
+                      ptop: float):
+    """The nonhydrostatic substep's vertical glue in one launch: interface
+    w of the advected layer w, the implicit acoustic solve (two Newton
+    linearisations, Thomas), delz clamped at 1 m, layer w (sw_pallas.py:
+    618-630) -> padded (w_new, delz_new).  Every input [F, Ny, Nx, K],
+    K >= 2, checked on either device."""
+    dev = _device("nh_vertical_solve: w_adv", w_adv)
+    F, Ny, Nx, K = c = _grid("nh_vertical_solve: w_adv", w_adv)
+    if K < 2:
+        raise ValueError(f"nh_vertical_solve: needs K >= 2 levels, got {K}")
+    _check("nh_vertical_solve", dev, [("w_adv", w_adv, c),
+                                      ("delz_adv", delz_adv, c),
+                                      ("pt_new", pt_new, c),
+                                      ("delp_new", delp_new, c)])
+    if dev.type == "cpu":
+        return nh_vertical_solve_plain(w_adv, delz_adv, pt_new, delp_new, dt,
+                                       ptop)
+    outs = tuple(torch.empty(c, dtype=torch.float32, device=dev)
+                 for _ in range(2))
+    _launch("nh_vertical_solve", "iiii" + "PPPP" + "f" * 7 + "PP", dev,
+            [F, Ny, Nx, K, *_ptrs(w_adv, delz_adv, pt_new, delp_new), dt,
+             ptop, P00, KAPPA, GAMMA, GRAV, RDGAS, *_ptrs(*outs)])
+    nh_vertical_solve.launches += 1
+    return outs
+
+
 def dsw_wind(pu, pv, uct, vct, delp_f, pt_f, vort, div_c, m: PaddedMetrics,
              ptop: float, dt: float, hord_mt: int, d2_bg: float,
              vtx_damp: float = 0.0, delz_f=None):
@@ -398,6 +439,6 @@ def dsw_tracer_acc(qx, qy, pd_x, uacc, vacc, mfx, mfy, m: PaddedMetrics,
 
 
 KERNELS = (dsw_csw1, dsw_csw2, dsw_transport, dsw_wind, dsw_tracer_acc,
-           dsw_tracer, dsw_nh_pert)
+           dsw_tracer, dsw_nh_pert, nh_vertical_solve)
 for _k in KERNELS:
     _k.launches = 0

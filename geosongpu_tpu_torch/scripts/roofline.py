@@ -44,7 +44,8 @@ STAGE_OWNER = {
     "transport_update": "dsw_transport",
     "nh_transport_update": "dsw_transport", "wind_update": "dsw_wind",
     "tracer_update": "dsw_tracer_acc", "tracer_sub_update": "dsw_tracer",
-    "nh_columns": "dsw_nh_pert", "remap_banded_kernel": "remap_banded",
+    "nh_columns": "dsw_nh_pert", "nh_vertical_columns": "nh_vertical_solve",
+    "remap_banded_kernel": "remap_banded",
     "gfdl_microphysics_columns": "gfdl_microphysics",
     "fill_q2_zero_columns": "fill_q2_zero",
     "aer_activation_points": "aer_activation",

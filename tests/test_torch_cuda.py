@@ -1,9 +1,10 @@
 """Tests that need an NVIDIA card: the CUDA kernels (remap_banded, the
 fused substep kernels in every form - hydrostatic, nonhydrostatic, blend -
-and the seven column-physics kernels, gfdl_microphysics and fill_q2_zero in
-every element at the edges of their tiles of columns, fill_q2_zero in its
-multi-tracer form too, cup_gf_sh and aer_activation in every element
-across their blocks' runs of points and on inputs off a 16-byte boundary)
+and the nonhydrostatic vertical solve, and the seven column-physics
+kernels, gfdl_microphysics and fill_q2_zero in every element at the edges
+of their tiles of columns, fill_q2_zero in its multi-tracer form too,
+cup_gf_sh and aer_activation in every element across their blocks' runs
+of points and on inputs off a 16-byte boundary)
 against their plain PyTorch versions, their input checks, the physics gate
 on the card, the hardware sampler's NVML readings of the card (the handle
 is torch's device, the energy counter never decreases, the utilization
@@ -156,7 +157,8 @@ COLUMN_KERNELS = ("dsw_csw2", "dsw_wind", "dsw_nh_pert")   # gate with a floor
 # blend: the blend damping form)
 CASES = ["dsw_csw1", "dsw_csw2", "dsw_transport", "dsw_wind",
          "dsw_tracer_acc", "dsw_transport nh", "dsw_wind nh", "dsw_tracer",
-         "dsw_nh_pert", "dsw_wind blend", "dsw_wind nh+blend"]
+         "dsw_nh_pert", "dsw_wind blend", "dsw_wind nh+blend",
+         "nh_vertical_solve nh"]
 
 
 def _within_gate(name, got, want):
@@ -277,6 +279,10 @@ def _synthetic_args(case, F, Ny, Nx, K, seed, dev, mask="random"):
                 100.0, 1.0, 8, 0.015, 0.05, delz_f)
     if name == "dsw_nh_pert":
         return (t(delp(c)), t(pt(c)), t(delz(c)), 100.0)
+    if name == "nh_vertical_solve":
+        # far from balance at depth: the solve's delz reaches the 1 m clamp
+        # in some columns from K = 17 on
+        return (t(wind(c)), t(delz(c)), t(pt(c)), t(delp(c)), 100.0, 100.0)
     if name == "dsw_tracer":
         return (t(pt(c) / 300.0), t(pt(c) / 300.0), t(delp(c)), t(delp(c)),
                 t(wind(xi)), t(wind(yi)), t(100.0 * u(*xi)),
@@ -333,7 +339,7 @@ TILE_FACES = [(2, 10, 13), (1, 15, 7), (1, 4, 5)]
 TILE_CASES = ["dsw_csw2", "dsw_wind", "dsw_wind blend", "dsw_wind nh",
               "dsw_wind nh+blend", "dsw_csw1", "dsw_transport",
               "dsw_transport nh", "dsw_tracer_acc", "dsw_tracer",
-              "dsw_nh_pert"]
+              "dsw_nh_pert", "nh_vertical_solve"]
 
 
 def _equal_to_plain(case, a):
@@ -384,14 +390,15 @@ def test_dsw_wind_blend_masks_match_plain(cuda, case, mask, face, K):
 
 
 # The column stages (hydro_columns of dsw_csw2 and dsw_wind, nh_columns of
-# dsw_nh_pert) also at K of a few levels, odd, and where the tile shrinks
-# below 32 columns (nh_columns above K = 76, hydro_columns above K = 127),
-# on the ragged faces of TILE_FACES.
+# dsw_nh_pert, nh_vertical_columns of nh_vertical_solve) also at K of a few
+# levels (K = 2: one unknown of the tridiagonal), odd, and where the tile
+# shrinks below 32 columns (nh_columns above K = 76, hydro_columns above
+# K = 127), on the ragged faces of TILE_FACES.
 @pytest.mark.parametrize("K", [2, 17, 77, 129])
 @pytest.mark.parametrize("face", TILE_FACES,
                          ids=["x".join(map(str, f)) for f in TILE_FACES])
 @pytest.mark.parametrize("case", ["dsw_nh_pert", "dsw_csw2", "dsw_wind",
-                                  "dsw_wind nh"])
+                                  "dsw_wind nh", "nh_vertical_solve"])
 def test_column_stages_match_plain(cuda, case, face, K):
     _equal_to_plain(case, _synthetic_args(case, *face, K, seed=11, dev=cuda))
 
@@ -403,6 +410,14 @@ def test_fvtp2d_tile_short_columns(cuda, case, K):
     the idle level lanes fetch the last level and write nothing."""
     _equal_to_plain(case, _synthetic_args(case, 1, 15, 7, K, seed=9,
                                           dev=cuda))
+
+
+@pytest.mark.parametrize("form", ["nh", "nh+blend"])
+def test_nh_vertical_solve_equals_plain_c12(c12_args, form):
+    """The vertical solve on the c12-L8 nonhydrostatic model's own inputs
+    (the padded transport outputs after 2 steps): 0.0 from its plain
+    version over every column."""
+    _equal_to_plain("nh_vertical_solve", c12_args[f"nh_vertical_solve {form}"])
 
 
 def test_nh_wind_launches_the_column_stage(cuda):
@@ -481,18 +496,18 @@ def test_fused_model_on_card_matches_cpu(cuda):
     cfg = dataclasses.replace(SMALL, ntracers=1, pallas_dycore=True)
     n = cfg.n_split
     _card_vs_cpu(cfg, cuda, ("u", "v", "delp", "pt", "q", "ps"),
-                 [n, n, n, n, cfg.q_split, 0, 0, 3])
+                 [n, n, n, n, cfg.q_split, 0, 0, 0, 3])
 
 
 def test_nh_fused_model_on_card_matches_cpu(cuda):
     """The nonhydrostatic model with per-substep tracers: NH dsw_transport,
-    dsw_tracer, dsw_nh_pert and NH dsw_wind once per substep, no
-    dsw_tracer_acc."""
+    dsw_tracer, dsw_nh_pert, nh_vertical_solve and NH dsw_wind once per
+    substep, no dsw_tracer_acc."""
     cfg = dataclasses.replace(NH, ntracers=1, pallas_dycore=True,
                               w_sponge_p=2.0e4)
     n = cfg.n_split
     _card_vs_cpu(cfg, cuda, ("u", "v", "delp", "pt", "q", "ps", "w", "delz"),
-                 [n, n, n, n, 0, n, n, 3])
+                 [n, n, n, n, 0, n, n, n, 3])
 
 
 def test_blend_fused_model_on_card_matches_cpu(cuda):
@@ -500,7 +515,7 @@ def test_blend_fused_model_on_card_matches_cpu(cuda):
                               damping_exchange="blend")
     n = cfg.n_split
     _card_vs_cpu(cfg, cuda, ("u", "v", "delp", "pt", "q", "ps"),
-                 [n, n, n, n, cfg.q_split, 0, 0, 3])
+                 [n, n, n, n, cfg.q_split, 0, 0, 0, 3])
 
 
 def test_jw_fused_model_on_card_matches_cpu(cuda):
@@ -515,8 +530,8 @@ def test_jw_fused_model_on_card_matches_cpu(cuda):
                        pallas_dycore=True)
     n = cfg.n_split
     _card_vs_cpu(cfg, cuda, ("u", "v", "delp", "pt", "ps"),
-                 [n, n, n, n, 0, 0, 0, 3], build=baroclinic_wave.build_model,
-                 noise_floor=True)
+                 [n, n, n, n, 0, 0, 0, 0, 3],
+                 build=baroclinic_wave.build_model, noise_floor=True)
 
 
 @pytest.mark.parametrize("name", ["dsw_csw2", "dsw_wind"])

@@ -150,6 +150,10 @@ def _port_args(name, s, chain, m):
     if name == "dsw_nh_pert":
         # any positive thickness will do for a wrapper check
         return (t("delp_f"), t("pt_f"), t("delp_f") * 0.08, CFG.ptop)
+    if name == "nh_vertical_solve":
+        # and any small layer w
+        return (t("pt_f") * 1e-4, t("delp_f") * 0.08, t("pt_f"), t("delp_f"),
+                DT, CFG.ptop)
     if name == "dsw_wind":
         return (s.pu, s.pv, uct, vct, t("delp_f"), t("pt_f"), t("vort"),
                 t("div_c"), m, CFG.ptop, DT, CFG.hord_mt or CFG.hord,
@@ -377,7 +381,11 @@ def test_substep_kernel_args_records_the_new_kernels(nh_models, nh_state):
                                     hord_tm=CFG.hord_tm, chart=ctx.chart,
                                     stag_tabs=None)
     assert sorted(args) == ["dsw_csw1", "dsw_csw2", "dsw_nh_pert",
-                            "dsw_tracer", "dsw_transport", "dsw_wind"]
+                            "dsw_tracer", "dsw_transport", "dsw_wind",
+                            "nh_vertical_solve"]
+    # the glue takes the padded transport outputs, delz_f is its refill
+    assert args["nh_vertical_solve"][0].shape == args["dsw_wind"][14].shape
+    assert args["nh_vertical_solve"][4:] == (DT, CFG.ptop)
     assert args["dsw_wind"][7] is None            # the blend form
     assert args["dsw_wind"][14] is args["dsw_nh_pert"][2]
     assert len(args["dsw_transport"][9]) == 4     # pw_x, pw_y, pz_x, pz_y
