@@ -23,7 +23,14 @@ time and, from a torch.profiler window of 10 calls, the device time of
 each __global__ stage it launches and of all the call's device work; a
 pointwise kernel also with its bound and the device time's share of it.
 Run it from copies of two trees in one call to compare their kernels;
-`--stages columns` runs the column view alone.
+`--stages columns` runs the column view alone.  `--stages solve` runs
+nh_vertical_solve alone: on the NH preset's inputs and on synthetic
+columns at c192-L72's padded shape (SOLVE_STAGE_SHAPE: 235,224 columns,
+made as tests/test_torch_cuda.py::_synthetic_args makes them), each equal
+to its plain version in every element (NaN only where plain has NaN), with
+its bound, the device time's share of it and the launch configuration the
+profiler records (grid, block, registers, shared memory, blocks an SM);
+the full `--stages` takes the c192 view too.
 
     python3 chip_smoke.py --harness
 
@@ -317,6 +324,9 @@ REMAP_STAGES = {48: "held_suarez_c48_l72", 192: "held_suarez_c192_l72_fused"}
 # --stages also takes the column kernels at these (columns, K): the
 # physics gate's, the aquaplanet model's and c192-L72's column count
 COLUMN_STAGES = ((128, 40), (6 * 48 * 48, 32), (6 * 192 * 192, 72))
+# --stages: nh_vertical_solve also on synthetic columns of c192-L72's padded
+# shape [F, Ny, Nx, K], where the columns take many waves of blocks
+SOLVE_STAGE_SHAPE = (6, 198, 198, 72)
 # arguments a wrapper takes and checks but whose values no term reads
 UNREAD = {"aer_activation": (2, 3), "moist_rad_coup": (2,),
           "buoyancy": (2,)}
@@ -609,15 +619,41 @@ def device_times(prof):
     return stats
 
 
+def launch_configs(prof):
+    """{__global__ stage: its launch configuration} of a torch.profiler
+    window, as the trace records it (grid, block, registers, shared
+    memory, blocks an SM)."""
+    import tempfile
+
+    keys = ("grid", "block", "registers per thread", "shared memory",
+            "blocks per SM", "est. achieved occupancy %")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)
+    if isinstance(events, dict):
+        events = events.get("traceEvents", [])
+    out = {}
+    for ev in events:
+        name = ev.get("name", "")
+        if ev.get("cat") == "kernel" and any(s in name for s in PORT_STAGES):
+            stage = name.split("::")[1].split("(")[0]
+            args = ev.get("args", {})
+            out.setdefault(stage, {k: args[k] for k in keys if k in args})
+    return out
+
+
 def stage_view(torch, label, kern, plain, card, exact, reps=20,
-               bound_of=None, nan_as_plain=False):
+               bound_of=None, nan_as_plain=False, configs=False):
     """--stages: one kernel call against its plain version (0.0 with
     `exact`, else within REL_GATE), its median time over `reps` calls, and
     the device time per launch of each __global__ it runs and of all its
     device work per call in a profiler window of 10 calls; with
     `bound_of(outputs) -> (ms by bytes, ms by operations)`, also the bound
     and the share of it that the device time reaches.  nan_as_plain: exact,
-    a NaN allowed where the plain version has one (equal_to_plain)."""
+    a NaN allowed where the plain version has one (equal_to_plain).
+    configs: also the launch configuration of each __global__."""
     from torch.profiler import ProfilerActivity, profile
 
     got, want = outputs_of(kern()), outputs_of(plain())
@@ -654,16 +690,47 @@ def stage_view(torch, label, kern, plain, card, exact, reps=20,
           + ", ".join(f"{k} {t / c / 1e3:.4f} x{c // 10}"
                       for k, (t, c) in stages.items())
           + f"; all device work {total:.4f} ms per call{share} ({card})")
+    if configs:
+        for stage, cfg in launch_configs(prof).items():
+            print(f"[stages] {label}: {stage} launch " + ", ".join(
+                f"{k} {v}" for k, v in cfg.items()))
 
 
 def stage_times(torch, dsw, args, names, form, card, reps=20):
-    """--stages of the substep kernels `names` on `args` (0.0 each)."""
+    """--stages of the substep kernels `names` on `args` (0.0 each);
+    nh_vertical_solve with its bound and launch configuration."""
     for name in names:
         a = args[name]
+        solve = name == "nh_vertical_solve"
         stage_view(torch, f"{name} {form} {tuple(a[0].shape)}",
                    lambda: getattr(dsw, name)(*a),
                    lambda: getattr(dsw, name + "_plain")(*a), card, True,
-                   reps, nan_as_plain=name in NAN_AS_PLAIN)
+                   reps, nan_as_plain=name in NAN_AS_PLAIN,
+                   bound_of=(lambda out: bound(name, tensors_of(a, ()), out))
+                   if solve else None, configs=solve)
+
+
+def solve_stage(torch, np, dsw, dev, card, seed=11):
+    """--stages of nh_vertical_solve on synthetic columns at
+    SOLVE_STAGE_SHAPE, made as tests/test_torch_cuda.py::_synthetic_args
+    makes them (layer w 0.3 u, delz 80 + 8 u, pt 300 + 10 u, delp 1000 +
+    100 u, u uniform in [-1, 1]; dt and ptop 100): equal to its plain
+    version in every element, with its bound and the device time's share
+    of it."""
+    rng = np.random.default_rng(seed)
+    shape = SOLVE_STAGE_SHAPE
+    u = lambda: rng.uniform(-1.0, 1.0, shape).astype(np.float32)
+    t = lambda x: torch.as_tensor(x, device=dev)
+    a = (t(0.3 * u()), t(80.0 + 8.0 * u()), t(300.0 + 10.0 * u()),
+         t(1000.0 + 100.0 * u()), 100.0, 100.0)
+    stage_view(torch, f"nh_vertical_solve synthetic {shape}",
+               lambda: dsw.nh_vertical_solve(*a),
+               lambda: dsw.nh_vertical_solve_plain(*a), card, True, reps=10,
+               bound_of=lambda out: bound("nh_vertical_solve",
+                                          tensors_of(a, ()), out),
+               nan_as_plain=True, configs=True)
+    del a
+    torch.cuda.empty_cache()
 
 
 def column_stages(torch, gate, kcol, kmic, dev, card):
@@ -2410,6 +2477,16 @@ def main() -> int:
         run_tools(torch, np, build_model_for, card, dev)
         return 0
     if "--stages" in sys.argv[1:]:
+        if "solve" in sys.argv[1:]:
+            pname = "held_suarez_c48_l72_nh_fused"
+            form, _, steps = STAGE_KERNELS[pname]
+            model = build_model_for(pname)(PRESETS[pname], dev)
+            args = kernel_inputs(torch, np, model, dev, steps=steps)
+            del model
+            stage_times(torch, dsw, args, ["nh_vertical_solve"], form, card)
+            del args
+            solve_stage(torch, np, dsw, dev, card)
+            return 0
         if "columns" not in sys.argv[1:]:
             for pname, (form, names, steps) in STAGE_KERNELS.items():
                 model = build_model_for(pname)(PRESETS[pname], dev)
@@ -2418,6 +2495,7 @@ def main() -> int:
                 stage_times(torch, dsw, args, names, form, card)
                 del args
                 torch.cuda.empty_cache()
+            solve_stage(torch, np, dsw, dev, card)
             gen = torch.Generator(device=dev)
             gen.manual_seed(0)
             for npx in (48, 192):

@@ -1,7 +1,8 @@
 // Tiles of neighbouring columns in shared memory, for Hopper (sm_90a).
 //
 // Shared by the column stages of the substep kernels (hydro_columns in
-// dsw_common.cuh, nh_columns in dsw_nh_pert.cu) and by remap_banded.cu.
+// dsw_common.cuh, nh_columns in dsw_nh_pert.cu), by nh_vertical_solve.cu
+// and by remap_banded.cu.
 // An array of columns is [ncol, L] row-major with L (the K levels or the
 // K+1 interfaces) minor, so the C neighbouring columns of a block are one
 // contiguous run of C*L values: the block reads and writes that run as a

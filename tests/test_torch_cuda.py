@@ -393,14 +393,120 @@ def test_dsw_wind_blend_masks_match_plain(cuda, case, mask, face, K):
 # dsw_nh_pert, nh_vertical_columns of nh_vertical_solve) also at K of a few
 # levels (K = 2: one unknown of the tridiagonal), odd, and where the tile
 # shrinks below 32 columns (nh_columns above K = 76, hydro_columns above
-# K = 127), on the ragged faces of TILE_FACES.
-@pytest.mark.parametrize("K", [2, 17, 77, 129])
+# K = 127), on the ragged faces of TILE_FACES.  nh_vertical_columns spreads
+# a call's columns over the fewest waves of two blocks an SM: on these
+# faces one column a block; at the NH preset's 17,496 columns its tile of
+# 67 no longer fits two blocks an SM from K = 87 on (4 (K - 1 | 1) + (K | 1)
+# floats a column), and it halves to 34 in two waves
+# (test_nh_vertical_solve_tile_shrinks).
+@pytest.mark.parametrize("K", [2, 17, 77, 87, 88, 129])
 @pytest.mark.parametrize("face", TILE_FACES,
                          ids=["x".join(map(str, f)) for f in TILE_FACES])
 @pytest.mark.parametrize("case", ["dsw_nh_pert", "dsw_csw2", "dsw_wind",
                                   "dsw_wind nh", "nh_vertical_solve"])
 def test_column_stages_match_plain(cuda, case, face, K):
     _equal_to_plain(case, _synthetic_args(case, *face, K, seed=11, dev=cuda))
+
+
+# nh_vertical_columns' tile on the NH preset's padded columns (6 faces of
+# 54 x 54): 67 columns a block in one wave up to K = 86, 34 in two waves
+# from K = 87; and deep columns, where two blocks an SM hold one column up
+# to K = 5786 and one block takes over
+@pytest.mark.parametrize("K", [72, 86, 87, 88])
+def test_nh_vertical_solve_tile_shrinks(cuda, K):
+    _equal_to_plain("nh_vertical_solve", _synthetic_args(
+        "nh_vertical_solve", 6, 54, 54, K, seed=17, dev=cuda))
+
+
+@pytest.mark.parametrize("K", [5786, 5787])
+def test_nh_vertical_solve_deep_columns(cuda, K):
+    _equal_to_plain("nh_vertical_solve", _synthetic_args(
+        "nh_vertical_solve", 1, 4, 5, K, seed=19, dev=cuda))
+
+
+def test_nh_vertical_solve_repeated_calls(cuda):
+    """The launch reads the device's limits and opts the kernel in once per
+    device: two calls on the same inputs and one on fresh inputs of
+    another K each equal the plain version."""
+    a = _synthetic_args("nh_vertical_solve", 2, 10, 13, 72, seed=21,
+                        dev=cuda)
+    _equal_to_plain("nh_vertical_solve", a)
+    _equal_to_plain("nh_vertical_solve", a)
+    _equal_to_plain("nh_vertical_solve", _synthetic_args(
+        "nh_vertical_solve", 1, 15, 7, 33, seed=23, dev=cuda))
+
+
+# The forward sweep's divisions (csrc/nh_vertical_columns.cuh:
+# refined_reciprocal, quotient) against __fdiv_rn on random operands whose
+# magnitudes lie in [2^-60, 2^61): random mantissas, every mantissa of the
+# denominator in turn, and mantissas near 1 and 2.
+SPLIT_DIVISION_CU = r"""
+#include <cstdint>
+#include "nh_vertical_columns.cuh"
+
+__device__ uint64_t mix(uint64_t x) {
+  x ^= x >> 33; x *= 0xff51afd7ed558ccdULL; x ^= x >> 33;
+  x *= 0xc4ceb9fe1a85ec53ULL; x ^= x >> 33;
+  return x;
+}
+
+__device__ float operand(uint64_t h, uint32_t i, int mode) {
+  uint32_t mant = (uint32_t)h & 0x7fffffu;
+  if (mode == 1) mant = i & 0x7fffffu;
+  if (mode == 2)
+    mant = (h & 1) ? 0x7fffffu - (uint32_t)(h >> 1 & 0xff)
+                   : (uint32_t)(h >> 1 & 0xff);
+  const uint32_t e = 127 - 60 + (uint32_t)((h >> 24) % 121);
+  return __uint_as_float(((uint32_t)(h >> 40) & 1u) << 31 | e << 23 | mant);
+}
+
+__global__ void check(unsigned long long base, int mode,
+                      unsigned long long* bad) {
+  const unsigned long long i =
+      base + blockIdx.x * (unsigned long long)blockDim.x + threadIdx.x;
+  const float n = operand(mix(2 * i + 1), (uint32_t)i, mode == 2 ? 2 : 0);
+  const float d = operand(mix(2 * i + 2 + ((uint64_t)mode << 40)),
+                          (uint32_t)i, mode);
+  const float r = nhv::refined_reciprocal(d);
+  if (__float_as_uint(nhv::quotient(n, d, r)) !=
+          __float_as_uint(__fdiv_rn(n, d)) ||
+      __float_as_uint(nhv::quotient(1.0f, d, r)) !=
+          __float_as_uint(__fdiv_rn(1.0f, d)))
+    atomicAdd(bad, 1ULL);
+}
+
+extern "C" long long split_division_mismatches(int mode, int launches) {
+  unsigned long long* bad = nullptr;
+  if (cudaMallocManaged(&bad, sizeof(*bad)) != cudaSuccess) return -1;
+  *bad = 0;
+  const unsigned long long per = 1ULL << 28;
+  for (int k = 0; k < launches; ++k)
+    check<<<(unsigned)(per / 256), 256>>>(k * per, mode, bad);
+  const cudaError_t err = cudaDeviceSynchronize();
+  const long long out = err == cudaSuccess ? (long long)*bad : -1;
+  cudaFree(bad);
+  return out;
+}
+"""
+
+
+def test_split_division_equals_ieee_division(cuda, tmp_path):
+    import ctypes
+    import subprocess
+
+    from geosongpu_tpu_torch.ops.kernels import build
+
+    src = tmp_path / "split_division.cu"
+    src.write_text(SPLIT_DIVISION_CU)
+    so = tmp_path / "libsplit_division.so"
+    subprocess.run([build.find_nvcc(), *build.ARCH_FLAGS, "-std=c++17",
+                    "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-shared",
+                    "-I", str(build.CSRC), "-o", str(so), str(src)],
+                   check=True, capture_output=True, text=True)
+    fn = ctypes.CDLL(str(so)).split_division_mismatches
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_longlong
+    for mode in (0, 1, 2):       # 2^34 pairs each (mode 1: 2^11 per mantissa)
+        assert fn(mode, 64) == 0, mode
 
 
 @pytest.mark.parametrize("K", [1, 2, 3, 4])
