@@ -4,9 +4,10 @@ geosongpu_tpu/benchmark/profiler.py).
 `trace` records a torch.profiler window (host and, on a card, device
 activity) and writes its Chrome trace under a directory, where
 `hws.xprof_util` reads the device's busy time.  `annotation` names a region
-in that trace and, on a card, in an NVTX range.  `TimedRegion` is the
-accumulating wall-clock timer, `Roofline` the achieved bytes/s of a step
-against the card's nameplate HBM rate.
+as a span of the program's one span recorder (spans.py) and as a labelled
+range in that trace.  `TimedRegion` is the accumulating wall-clock timer,
+`Roofline` the achieved bytes/s of a measured byte count against the
+card's nameplate HBM rate.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from typing import Dict, Iterator, List
 import torch
 
 from ..device import synchronize
+from ..spans import span
 
 CARD = "NVIDIA H100 80GB HBM3"
 
@@ -47,14 +49,10 @@ def trace(log_dir: str, device="cuda") -> Iterator[torch.profiler.profile]:
 
 @contextlib.contextmanager
 def annotation(name: str) -> Iterator[None]:
-    """A named region in the profiler's trace and, where there is a card,
-    an NVTX range."""
-    with torch.profiler.record_function(name):
-        if torch.cuda.is_available():
-            with torch.cuda.nvtx.range(name):
-                yield
-        else:
-            yield
+    """A span `name` (recorded while spans.recording() is open) and a
+    range of that name among the profiler's host events."""
+    with span(name), torch.profiler.record_function(name):
+        yield
 
 
 class TimedRegion:
@@ -99,24 +97,3 @@ class Roofline:
         return (f"{self.label}: {self.achieved_bw/1e9:.1f} GB/s = "
                 f"{self.fraction_of_peak*100:.1f}% of {self.chip} HBM peak")
 
-
-def dycore_step_bytes(npx: int, npz: int, ntracers: int = 1,
-                      n_split: int = 6) -> float:
-    """Byte-traffic model of one model step: per substep the working set
-    (~25 padded fields) is read/written ~3x by the fused stencil passes,
-    plus the remap."""
-    cells = 6 * npx * npx * npz
-    fields = 20 + 4 * ntracers
-    per_substep = fields * 4 * 3 * cells  # f32, ~3 passes
-    remap = (8 + ntracers) * 4 * 4 * cells
-    return n_split * per_substep + remap
-
-
-def step_roofline(npx: int, npz: int, seconds: float, ntracers: int = 1,
-                  n_split: int = 6, chip: str = CARD) -> Roofline:
-    return Roofline(
-        label=f"c{npx}-L{npz} step",
-        bytes_accessed=dycore_step_bytes(npx, npz, ntracers, n_split),
-        seconds=seconds,
-        chip=chip,
-    )

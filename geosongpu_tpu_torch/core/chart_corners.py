@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..device import to_torch
+from ..spans import spanned
 from .topology import FACE_FRAMES, NFACES, face_point, halo_spec
 
 # --------------------------------------------------------------------------
@@ -492,6 +493,7 @@ class ChartCorners:
             st_w=self.st_w[f], st_mask=self.st_mask[0][None]
             & (g[:, :, None] > 0))
 
+    @spanned("chart.scalar")
     def apply_scalar(self, a: torch.Tensor, direction: str = "x"):
         """Resample the corner L-regions of a padded [F, Ny, Nx, ...] scalar
         onto the chart gridpoints, in deviation form (uniform fields stay
@@ -517,6 +519,7 @@ class ChartCorners:
             out[:, ysq, xsq] = (base + corr).reshape(blk.shape)
         return out
 
+    @spanned("chart.agrid")
     def apply_agrid(self, ua, va, pu, pv):
         """Overwrite the corner targets of the A-grid winds with the chart
         reconstruction from the padded D-grid winds; other slots of each

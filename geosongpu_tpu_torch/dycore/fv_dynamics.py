@@ -40,6 +40,7 @@ from ..ops.kernels.remap import remap_banded
 from ..ops.remap import remap_field
 from ..ops.vertical import cumsum_k, interfaces_from_delp
 from ..parallel.halo import HaloOps, build_halo_ops
+from ..spans import span
 from .nh_solver import _exner_mid, hydrostatic_delz
 from .sw import (PaddedMetrics, StagResample, SWState, d_sw_substep,
                  fill_substep, padded_metrics, stag_resample_tables)
@@ -266,98 +267,102 @@ def fv_dynamics_step(state: DycoreState, ctx: DycoreContext,
                     ops.zeros((F, Ny, Nx + 1, K)),
                     ops.zeros((F, Ny + 1, Nx, K))]
         for i in range(cfg.n_split):
-            if cfg.overlap_fills and i > 0:
-                # the scalar pads of the previous substep's end
-                s = SWState(*ops.fill_dgrid(u, v), *pads)
-            else:
-                s = fill_substep(ops, u, v, delp, pt,
-                                 q if substep_tracers else None,
-                                 w=w, delz=delz, chart=chart)
-            out = substep(
-                s, m, ops, dt_acoustic, cfg.ptop, hord=cfg.hord,
-                d2_bg=cfg.d2_bg, advect_tracers=substep_tracers,
-                hord_mt=cfg.hord_mt, hord_tm=cfg.hord_tm, chart=chart,
-                stag_tabs=stag, vtx_damp=cfg.vtx_damp)
-            u, v, delp, pt = out.u, out.v, out.delp, out.pt
-            if nonhydro:
-                w, delz = out.w, out.delz
-            if substep_tracers:
-                q = out.q
-            if z_tracer:
-                tacc = [a + b for a, b in zip(tacc, (out.uct_pad, out.vct_pad,
-                                                     out.mfx_pad,
-                                                     out.mfy_pad))]
-            else:
-                mfx_acc = mfx_acc + out.mfx
-                mfy_acc = mfy_acc + out.mfy
-            if cfg.overlap_fills:
-                # the substep's mid-step refills of delp/pt (/delz) are
-                # fx of the new interiors: reuse them; only w and
-                # per-substep tracers are exchanged afresh
-                qs = q if substep_tracers else None
-                pq, pw = fx(qs), fx(w)
-                pads = (out.pd_fill, fy(delp, out.pd_fill),
-                        out.pt_fill, fy(pt, out.pt_fill), pq, fy(qs, pq),
-                        pw, fy(w, pw), out.pz_fill, fy(delz, out.pz_fill))
+            with span("substep"):
+                if cfg.overlap_fills and i > 0:
+                    # the scalar pads of the previous substep's end
+                    s = SWState(*ops.fill_dgrid(u, v), *pads)
+                else:
+                    s = fill_substep(ops, u, v, delp, pt,
+                                     q if substep_tracers else None,
+                                     w=w, delz=delz, chart=chart)
+                out = substep(
+                    s, m, ops, dt_acoustic, cfg.ptop, hord=cfg.hord,
+                    d2_bg=cfg.d2_bg, advect_tracers=substep_tracers,
+                    hord_mt=cfg.hord_mt, hord_tm=cfg.hord_tm, chart=chart,
+                    stag_tabs=stag, vtx_damp=cfg.vtx_damp)
+                u, v, delp, pt = out.u, out.v, out.delp, out.pt
+                if nonhydro:
+                    w, delz = out.w, out.delz
+                if substep_tracers:
+                    q = out.q
+                if z_tracer:
+                    with span("tracer_acc"):
+                        tacc = [a + b for a, b in zip(
+                            tacc, (out.uct_pad, out.vct_pad, out.mfx_pad,
+                                   out.mfy_pad))]
+                else:
+                    mfx_acc = mfx_acc + out.mfx
+                    mfy_acc = mfy_acc + out.mfy
+                if cfg.overlap_fills:
+                    # the substep's mid-step refills of delp/pt (/delz) are
+                    # fx of the new interiors: reuse them; only w and
+                    # per-substep tracers are exchanged afresh
+                    qs = q if substep_tracers else None
+                    pq, pw = fx(qs), fx(w)
+                    pads = (out.pd_fill, fy(delp, out.pd_fill),
+                            out.pt_fill, fy(pt, out.pt_fill), pq, fy(qs, pq),
+                            pw, fy(w, pw), out.pz_fill, fy(delz, out.pz_fill))
         if z_tracer:
-            mfx_acc = mfx_acc + tacc[2][:, h:h + ny, h:h + nx + 1]
-            mfy_acc = mfy_acc + tacc[3][:, h:h + ny + 1, h:h + nx]
-            q = _advect_tracers_accumulated(q, delp0, tacc, ops, m, cfg.hord,
-                                            cfg.q_split, dt_acoustic,
-                                            chart=chart,
-                                            fused=cfg.pallas_dycore)
+            with span("tracer_acc"):
+                mfx_acc = mfx_acc + tacc[2][:, h:h + ny, h:h + nx + 1]
+                mfy_acc = mfy_acc + tacc[3][:, h:h + ny + 1, h:h + nx]
+                q = _advect_tracers_accumulated(
+                    q, delp0, tacc, ops, m, cfg.hord, cfg.q_split,
+                    dt_acoustic, chart=chart, fused=cfg.pallas_dycore)
 
         # ---- vertical remap back to the reference hybrid coordinate ----
-        pe1 = interfaces_from_delp(delp, cfg.ptop)
-        ps = pe1[..., -1]
-        pe2 = ctx.ak + ctx.bk * ps[..., None]
-        delp_new = pe2[..., 1:] - pe2[..., :-1]
-        # pt, tracers (and w / specific volume) share (pe1, pe2): one
-        # multi-field call computes the overlap geometry once
-        nq = 0 if q is None else q.shape[-1]
-        fields = [pt] + [q[..., t] for t in range(nq)]
-        if nonhydro:
-            # w remaps mass-weighted like any scalar; delz in its
-            # per-unit-mass form, so that the column height is conserved
-            fields += [w, delz / torch.clamp(delp, min=1e-3)]
-        out = rm_many(fields, pe1, pe2)
-        pt = out[0]
-        if q is not None:
-            q = torch.stack(out[1:1 + nq], dim=-1)
-        if nonhydro:
-            w = out[1 + nq]
-            delz = out[2 + nq] * delp_new
-        # with overlap_fills the last substep's padded delp is fx(delp)
-        dpad = pads[0] if cfg.overlap_fills else ops.fill(delp, "x")
-        u, v = _remap_winds(u, v, dpad, ctx.ak, ctx.bk, cfg.ptop, h, ny, nx,
-                            rm)
-        delp = delp_new
+        with span("remap"):
+            pe1 = interfaces_from_delp(delp, cfg.ptop)
+            ps = pe1[..., -1]
+            pe2 = ctx.ak + ctx.bk * ps[..., None]
+            delp_new = pe2[..., 1:] - pe2[..., :-1]
+            # pt, tracers (and w / specific volume) share (pe1, pe2): one
+            # multi-field call computes the overlap geometry once
+            nq = 0 if q is None else q.shape[-1]
+            fields = [pt] + [q[..., t] for t in range(nq)]
+            if nonhydro:
+                # w remaps mass-weighted like any scalar; delz in its
+                # per-unit-mass form, so that the column height is conserved
+                fields += [w, delz / torch.clamp(delp, min=1e-3)]
+            out = rm_many(fields, pe1, pe2)
+            pt = out[0]
+            if q is not None:
+                q = torch.stack(out[1:1 + nq], dim=-1)
+            if nonhydro:
+                w = out[1 + nq]
+                delz = out[2 + nq] * delp_new
+            # with overlap_fills the last substep's padded delp is fx(delp)
+            dpad = pads[0] if cfg.overlap_fills else ops.fill(delp, "x")
+            u, v = _remap_winds(u, v, dpad, ctx.ak, ctx.bk, cfg.ptop, h, ny,
+                                nx, rm)
+            delp = delp_new
 
     if nonhydro and cfg.w_sponge_p > 0.0:
         # model-top Rayleigh sponge on w: upward-propagating acoustic and
         # gravity waves are absorbed instead of reflecting off the lid
-        pe_s = interfaces_from_delp(delp, cfg.ptop)
-        pm_s = 0.5 * (pe_s[..., 1:] + pe_s[..., :-1])
-        fac = torch.where(pm_s < cfg.w_sponge_p,
-                          float(np.float32(np.exp(-cfg.dt
-                                                  / cfg.w_sponge_tau))), 1.0)
-        w = w * fac
+        with span("sponge"):
+            pe_s = interfaces_from_delp(delp, cfg.ptop)
+            pm_s = 0.5 * (pe_s[..., 1:] + pe_s[..., :-1])
+            damp = float(np.float32(np.exp(-cfg.dt / cfg.w_sponge_tau)))
+            fac = torch.where(pm_s < cfg.w_sponge_p, damp, 1.0)
+            w = w * fac
 
     # ---- diagnostics ----------------------------------------------------
-    pe = interfaces_from_delp(delp, cfg.ptop)
-    ps = pe[..., -1]
-    ua = 0.5 * (u[:, :-1, :] + u[:, 1:, :])
-    va = 0.5 * (v[:, :, :-1] + v[:, :, 1:])
-    conv = (((mfx_acc[:, :, :-1] - mfx_acc[:, :, 1:])
-             + (mfy_acc[:, :-1, :] - mfy_acc[:, 1:, :]))
-            * m.rarea[:, h:h + ny, h:h + nx] / cfg.dt)
-    omga = cumsum_k(conv) - 0.5 * conv
+    with span("diagnostics"):
+        pe = interfaces_from_delp(delp, cfg.ptop)
+        ps = pe[..., -1]
+        ua = 0.5 * (u[:, :-1, :] + u[:, 1:, :])
+        va = 0.5 * (v[:, :, :-1] + v[:, :, 1:])
+        conv = (((mfx_acc[:, :, :-1] - mfx_acc[:, :, 1:])
+                 + (mfy_acc[:, :-1, :] - mfy_acc[:, 1:, :]))
+                * m.rarea[:, h:h + ny, h:h + nx] / cfg.dt)
+        omga = cumsum_k(conv) - 0.5 * conv
 
-    return DycoreState(
-        u=u, v=v, delp=delp, pt=pt,
-        q=q if has_q else state.q,
-        w=w if nonhydro else state.w,
-        delz=delz if nonhydro else state.delz, phis=state.phis,
-        ps=ps, omga=omga, ua=ua, va=va,
-        mfx=mfx_acc, mfy=mfy_acc,
-    )
+        return DycoreState(
+            u=u, v=v, delp=delp, pt=pt,
+            q=q if has_q else state.q,
+            w=w if nonhydro else state.w,
+            delz=delz if nonhydro else state.delz, phis=state.phis,
+            ps=ps, omga=omga, ua=ua, va=va,
+            mfx=mfx_acc, mfy=mfy_acc,
+        )

@@ -36,6 +36,7 @@ from ..ops.fvtp2d import ddx, ddy, fvtp2d
 from ..ops.ppm import ppm_flux, upwind_flux
 from ..ops.vertical import interfaces_from_delp, rcumsum_k
 from ..parallel.halo import HaloOps
+from ..spans import span, spanned
 from .nh_solver import vertical_acoustic_solve
 
 P00 = 1.0e5
@@ -355,6 +356,7 @@ def damping_normal_fields(pu, pv, ua, va, m: PaddedMetrics, ops: HaloOps,
     return p_nu, p_nv
 
 
+@spanned("damping_divergence")
 def damping_divergence(pu, pv, ua, va, uct, vct, m: PaddedMetrics,
                        ops: HaloOps, tabs: StagResample):
     """Padded corner-grid divergence for the damping operator (the
@@ -476,9 +478,10 @@ def c_sw_part2(uc, vc, pt_h, pkz, phi, ke, vort, m: PaddedMetrics,
 def c_sw(s: SWState, m: PaddedMetrics, dt2: float, ptop: float, chart=None):
     """Returns (uc*, vc*, vort, ua, va): time-centred advective normal winds
     on the C-grid plus the intermediates the d_sw stage reuses."""
-    ua, va = a_grid_winds(s.pu, s.pv, m)
-    if chart is not None:
-        ua, va = chart.apply_agrid(ua, va, s.pu, s.pv)
+    with span("agrid"):
+        ua, va = a_grid_winds(s.pu, s.pv, m)
+        if chart is not None:
+            ua, va = chart.apply_agrid(ua, va, s.pu, s.pv)
     uc, vc, delp_h, pt_h, ke, vort = c_sw_part1(s, m, dt2, ua, va)
     if chart is not None:
         vort = chart.apply_scalar(vort, "derived")

@@ -32,6 +32,7 @@ import torch
 
 from ..ops.kernels import dsw
 from ..parallel.halo import HaloOps
+from ..spans import span
 from .sw import (PaddedMetrics, StagResample, SubstepOut, SWState,
                  a_grid_winds, damping_divergence)
 
@@ -82,9 +83,10 @@ def _substep(s, m, ops, dt, ptop, hord, d2_bg, advect_tracers, hord_mt,
     islice = (slice(None), slice(h, h + ny), slice(h, h + nx))
     nonhydro = s.pz_x is not None
 
-    ua, va = a_grid_winds(s.pu, s.pv, m)
-    if chart is not None:
-        ua, va = chart.apply_agrid(ua, va, s.pu, s.pv)
+    with span("agrid"):
+        ua, va = a_grid_winds(s.pu, s.pv, m)
+        if chart is not None:
+            ua, va = chart.apply_agrid(ua, va, s.pu, s.pv)
     uc, vc, delp_h, pt_h, ke, vort = call(
         "dsw_csw1", s.pu, s.pv, ua, va, s.pd_x, s.pd_y, s.pt_x, s.pt_y, m,
         0.5 * dt)

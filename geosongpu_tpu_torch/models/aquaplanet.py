@@ -37,6 +37,7 @@ from ..ops.vertical import interfaces_from_delp
 from ..physics import standalone as primary
 from ..physics.held_suarez import held_suarez_forcing
 from ..physics.thermo import CP_AIR, GRAV, RDGAS, qsat
+from ..spans import spanned
 from . import held_suarez
 
 CD = 1.2e-3   # bulk transfer coefficient of the surface fluxes
@@ -114,6 +115,7 @@ class AquaplanetModel(held_suarez.HeldSuarezModel):
         t, qv = shallow(t, qv, p_mid, delp, dt)
         return pkz, (t, qv, ql, qr, torch.zeros_like(ql), p_mid, delp, dt)
 
+    @spanned("physics")
     def physics(self, state: DycoreState, lats=None) -> DycoreState:
         """The moist physics chain alone, on the state the dynamics left;
         lats: block-local latitudes (the SST follows them), default the

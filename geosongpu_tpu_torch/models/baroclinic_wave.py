@@ -34,6 +34,7 @@ from ..dycore.fv_dynamics import (DycoreContext, _make_remap, build_context,
                                   fv_dynamics_step)
 from ..dycore.sw import P00
 from ..parallel.halo import symmetrize_shared_edges
+from ..spans import span, spanned
 from .held_suarez import HeldSuarezModel
 
 # JW06 Table 1 parameters
@@ -223,15 +224,18 @@ class BaroclinicWaveModel:
         return jw_initial_state(self.config, self.grid, self.ak, self.bk,
                                 self.device, perturb=bool(perturb))[0]
 
+    @spanned("dynamics")
     def dynamics(self, state: DycoreState) -> DycoreState:
         """The dynamics alone (no symmetrization)."""
         return fv_dynamics_step(state, self.ctx, remap=self.remap)
 
+    @spanned("step")
     def step(self, state: DycoreState) -> DycoreState:
         state = self.dynamics(state)
         if self.config.edge_symmetrize:
-            u, v = symmetrize_shared_edges(state.u, state.v)
-            state = dataclasses.replace(state, u=u, v=v)
+            with span("symmetrize"):
+                u, v = symmetrize_shared_edges(state.u, state.v)
+                state = dataclasses.replace(state, u=u, v=v)
         state.check_f32()
         return state
 
@@ -245,12 +249,16 @@ def build_model(config: DycoreConfig, device) -> BaroclinicWaveModel:
     """The JW06 model of `config` on `device`: the unperturbed state is
     built once for the terrain the context carries."""
     device = torch.device(device)
-    grid = build_grid(config.npx, config.halo)
-    if config.vertical == "sigma":
-        ak, bk = sigma_coordinate(config.npz, config.ptop)
-    else:
-        ak, bk = hybrid_coordinate(config.npz, config.ptop)
-    ak, bk = np.asarray(ak), np.asarray(bk)
-    _, phis = jw_initial_state(config, grid, ak, bk, device, perturb=False)
-    ctx = build_context(config, grid, ak, bk, device, phis=phis)
+    with span("setup.grid"):
+        grid = build_grid(config.npx, config.halo)
+    with span("setup.vertical"):
+        if config.vertical == "sigma":
+            ak, bk = sigma_coordinate(config.npz, config.ptop)
+        else:
+            ak, bk = hybrid_coordinate(config.npz, config.ptop)
+        ak, bk = np.asarray(ak), np.asarray(bk)
+    with span("setup.context"):
+        _, phis = jw_initial_state(config, grid, ak, bk, device,
+                                   perturb=False)
+        ctx = build_context(config, grid, ak, bk, device, phis=phis)
     return BaroclinicWaveModel(config, grid, ctx, ak, bk)

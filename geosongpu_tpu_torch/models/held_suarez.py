@@ -20,6 +20,7 @@ from ..dycore.fv_dynamics import (DycoreContext, _make_remap, build_context,
 from ..parallel.halo import symmetrize_shared_edges
 from ..physics.held_suarez import (HSLatitudes, held_suarez_forcing,
                                    hs_latitudes)
+from ..spans import span, spanned
 
 
 class HeldSuarezModel:
@@ -43,10 +44,12 @@ class HeldSuarezModel:
         return init_state(self.config, self.ak, self.bk, self.device,
                           perturb=perturb, seed=seed)
 
+    @spanned("dynamics")
     def dynamics(self, state: DycoreState) -> DycoreState:
         """The dynamics alone (no forcing, no symmetrization)."""
         return fv_dynamics_step(state, self.ctx, remap=self.remap)
 
+    @spanned("forcing")
     def forcing(self, state: DycoreState, lats: HSLatitudes = None
                 ) -> DycoreState:
         """HS94 forcing on `lats` (default: the model's)."""
@@ -56,11 +59,13 @@ class HeldSuarezModel:
             self.lats if lats is None else lats, cfg.ptop, cfg.dt)
         return dataclasses.replace(state, u=u, v=v, pt=pt)
 
+    @spanned("step")
     def step(self, state: DycoreState) -> DycoreState:
         out = self.forcing(self.dynamics(state))
         if self.config.edge_symmetrize:
-            u, v = symmetrize_shared_edges(out.u, out.v)
-            out = dataclasses.replace(out, u=u, v=v)
+            with span("symmetrize"):
+                u, v = symmetrize_shared_edges(out.u, out.v)
+                out = dataclasses.replace(out, u=u, v=v)
         out.check_f32()
         return out
 
@@ -95,10 +100,13 @@ def build_model(config: DycoreConfig, device, model_cls=HeldSuarezModel):
     """The model of `config` on `device`; model_cls: HeldSuarezModel or a
     subclass with its constructor."""
     device = torch.device(device)
-    grid = build_grid(config.npx, config.halo)
-    if config.vertical == "sigma":
-        ak, bk = sigma_coordinate(config.npz, config.ptop)
-    else:
-        ak, bk = hybrid_coordinate(config.npz, config.ptop)
-    ctx = build_context(config, grid, ak, bk, device)
+    with span("setup.grid"):
+        grid = build_grid(config.npx, config.halo)
+    with span("setup.vertical"):
+        if config.vertical == "sigma":
+            ak, bk = sigma_coordinate(config.npz, config.ptop)
+        else:
+            ak, bk = hybrid_coordinate(config.npz, config.ptop)
+    with span("setup.context"):
+        ctx = build_context(config, grid, ak, bk, device)
     return model_cls(config, grid, ctx, hs_latitudes(grid, device), ak, bk)

@@ -26,6 +26,8 @@ from pathlib import Path
 
 import torch
 
+from ...spans import spanned
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -124,12 +126,19 @@ def load_library() -> KernelLibrary:
     """Build (if needed) and load the kernel library.  Raises when there is
     no CUDA device, no nvcc, or the build or load fails: there is no
     fallback."""
-    global _LIBRARY
     if _LIBRARY is not None:
         return _LIBRARY
     if not torch.cuda.is_available():
         raise RuntimeError("the CUDA kernels need a CUDA device; none is "
                            "available")
+    return _load()
+
+
+@spanned("setup.library")
+def _load() -> KernelLibrary:
+    """The library of the sources' hash: built first where the build
+    directory does not hold it yet, then loaded."""
+    global _LIBRARY
     nvcc = find_nvcc()
     out_dir = BUILD_DIR / _digest()
     so = out_dir / "libgeosongpu_kernels.so"

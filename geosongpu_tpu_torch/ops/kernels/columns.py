@@ -31,6 +31,7 @@ import torch
 
 from ...physics import standalone as primary
 from ...physics.thermo import CP_AIR, EPS, RDGAS
+from ...spans import spanned
 from .build import check_tensors, device_of, launch
 
 
@@ -68,6 +69,7 @@ def fill_q2_zero_tracers_plain(q, delp, n: int):
 # wrappers
 # --------------------------------------------------------------------------
 
+@spanned("kernel.fill_q2_zero")
 def fill_q2_zero(q, delp):
     """Top-down borrowing of negative tracer mass from the layer below,
     the bottom layer clipped -> q' [..., K]."""
@@ -82,6 +84,7 @@ def fill_q2_zero(q, delp):
     return out
 
 
+@spanned("kernel.fill_q2_zero")
 def fill_q2_zero_tracers(q, delp, n: int):
     """fill_q2_zero of the first `n` tracers of a tracer array q [..., K,
     nq], as the model state holds it, in one launch: no tracer slice is
@@ -105,6 +108,7 @@ def fill_q2_zero_tracers(q, delp, n: int):
     return tuple(out.unbind(0))
 
 
+@spanned("kernel.aer_activation")
 def aer_activation(num_aer, w, t, p, sigma_g: float = 2.0,
                    s_crit0: float = 0.003):
     """Activated droplet number -> [..., K].  t and p belong to the
@@ -123,6 +127,7 @@ def aer_activation(num_aer, w, t, p, sigma_g: float = 2.0,
     return out
 
 
+@spanned("kernel.moist_rad_coup")
 def moist_rad_coup(ql, qi, p, t):
     """Cloud fraction, effective radii and condensate for the radiation
     coupling -> dict of [..., K].  p is checked but not read."""
@@ -139,6 +144,7 @@ def moist_rad_coup(ql, qi, p, t):
                     outs))
 
 
+@spanned("kernel.cup_gf_sh")
 def cup_gf_sh(t, qv, p, delp, dt: float):
     """Shallow-convective mixing of t and qv across unstable interfaces
     -> (t', qv')."""

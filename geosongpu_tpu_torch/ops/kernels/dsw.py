@@ -36,6 +36,7 @@ from ...dycore.nh_solver import GAMMA
 from ...dycore.sw import (P00, PaddedMetrics, SWState, _hydrostatic_fields,
                           c_sw_part1, c_sw_part2, nh_perturbation_fields,
                           nh_vertical_glue, transport_part, wind_part)
+from ...spans import spanned
 from ..fvtp2d import ddx, ddy, fvtp2d
 from .build import check_tensors as _check
 from .build import device_of as _device
@@ -213,6 +214,7 @@ def _hord(kernel: str, hord: int):
 # wrappers
 # --------------------------------------------------------------------------
 
+@spanned("kernel.dsw_csw1")
 def dsw_csw1(pu, pv, ua, va, pd_x, pd_y, pt_x, pt_y, m: PaddedMetrics,
              dt2: float):
     """C-grid winds, half-step delp/pt, centre KE and absolute vorticity
@@ -237,6 +239,7 @@ def dsw_csw1(pu, pv, ua, va, pd_x, pd_y, pt_x, pt_y, m: PaddedMetrics,
     return outs
 
 
+@spanned("kernel.dsw_csw2")
 def dsw_csw2(uc, vc, delp_h, pt_h, ke, vort, m: PaddedMetrics, ptop: float,
              dt2: float):
     """Column integral of the half state, chart resample and time-centred
@@ -260,6 +263,7 @@ def dsw_csw2(uc, vc, delp_h, pt_h, ke, vort, m: PaddedMetrics, ptop: float,
     return uct, vct
 
 
+@spanned("kernel.dsw_transport")
 def dsw_transport(pd_x, pd_y, pt_x, pt_y, uct, vct, m: PaddedMetrics,
                   dt: float, hord: int, nh=None):
     """PPM transport of delp and pt (sw_pallas.py k3)
@@ -298,6 +302,7 @@ def dsw_transport(pd_x, pd_y, pt_x, pt_y, uct, vct, m: PaddedMetrics,
     return outs
 
 
+@spanned("kernel.dsw_tracer")
 def dsw_tracer(qx, qy, pd_x, delp_new, uct, vct, mfx, mfy, m: PaddedMetrics,
                dt: float, hord: int):
     """One tracer of one substep, advected with the substep's winds and
@@ -326,6 +331,7 @@ def dsw_tracer(qx, qy, pd_x, delp_new, uct, vct, mfx, mfy, m: PaddedMetrics,
     return (q_new,)
 
 
+@spanned("kernel.dsw_nh_pert")
 def dsw_nh_pert(delp_f, pt_f, delz_f, ptop: float):
     """p', phi' and rho of the solved nonhydrostatic state, by column
     (sw_pallas.py _nh_pert_kernel) -> (pprime, phiprime, rho1)."""
@@ -344,6 +350,7 @@ def dsw_nh_pert(delp_f, pt_f, delz_f, ptop: float):
     return outs
 
 
+@spanned("kernel.nh_vertical_solve")
 def nh_vertical_solve(w_adv, delz_adv, pt_new, delp_new, dt: float,
                       ptop: float):
     """The nonhydrostatic substep's vertical glue in one launch: interface
@@ -371,6 +378,7 @@ def nh_vertical_solve(w_adv, delz_adv, pt_new, delp_new, dt: float,
     return outs
 
 
+@spanned("kernel.dsw_wind")
 def dsw_wind(pu, pv, uct, vct, delp_f, pt_f, vort, div_c, m: PaddedMetrics,
              ptop: float, dt: float, hord_mt: int, d2_bg: float,
              vtx_damp: float = 0.0, delz_f=None):
@@ -411,6 +419,7 @@ def dsw_wind(pu, pv, uct, vct, delp_f, pt_f, vort, div_c, m: PaddedMetrics,
     return u_new, v_new
 
 
+@spanned("kernel.dsw_tracer_acc")
 def dsw_tracer_acc(qx, qy, pd_x, uacc, vacc, mfx, mfy, m: PaddedMetrics,
                    dt: float, hord: int):
     """One z_tracer subcycle of one tracer (sw_pallas.py:377)

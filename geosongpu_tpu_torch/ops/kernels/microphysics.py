@@ -23,6 +23,7 @@ import torch
 from ...physics import standalone as primary
 from ...physics.thermo import (CP_AIR, EPS, GRAV, HLS, HLV, RDGAS, RVGAS,
                                T_ICE)
+from ...spans import spanned
 from .build import device_of, launch
 from .columns import column_extents
 
@@ -45,6 +46,7 @@ def kernel_constants(dt: float):
 gfdl_microphysics_plain = primary.gfdl_microphysics
 
 
+@spanned("kernel.gfdl_microphysics")
 def gfdl_microphysics(t, qv, ql, qr, qi, p, delp, dt: float):
     """One physics step of the microphysics on columns [..., K], top to
     surface -> (t', qv', ql', qr', qi' [..., K], precip [...])."""

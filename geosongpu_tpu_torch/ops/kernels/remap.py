@@ -17,6 +17,7 @@ import ctypes
 
 import torch
 
+from ...spans import spanned
 from ..remap import _check_kord, remap_fields_banded
 from .build import load_library
 
@@ -46,6 +47,7 @@ def _check_inputs(qs, pe1, pe2):
             raise ValueError(f"{name} must be contiguous")
 
 
+@spanned("kernel.remap_banded")
 def remap_banded(qs, pe1: torch.Tensor, pe2: torch.Tensor, kord: int = 8,
                  band: int = 10):
     """Banded kord-8 remap of one or more fields sharing (pe1, pe2).

@@ -27,6 +27,7 @@ import math
 
 import torch
 
+from ...spans import spanned
 from .build import device_of, launch
 from .columns import column_extents
 
@@ -81,6 +82,7 @@ def evap_constants(dt: float, pdf_width: float):
             1.0 - math.exp(-dt / 900.0), _LV, _LS, _CP)
 
 
+@spanned("kernel.buoyancy")
 def buoyancy(t, qv, p, t_parcel, qv_parcel):
     """Parcel buoyancy [m/s^2] -> [..., K].  p is checked but not read
     (the densities are compared at equal pressure)."""
@@ -97,6 +99,7 @@ def buoyancy(t, qv, p, t_parcel, qv_parcel):
     return out
 
 
+@spanned("kernel.evap_subl_pdf")
 def evap_subl_pdf(t, qv, ql, qi, p, dt: float, pdf_width: float = 0.1):
     """Evaporation of cloud liquid and sublimation of cloud ice into
     subsaturated air -> (t', qv', ql', qi')."""

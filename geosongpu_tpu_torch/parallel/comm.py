@@ -25,6 +25,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from ..spans import spanned
+
 Perm = Tuple[Tuple[int, int], ...]
 
 
@@ -75,6 +77,7 @@ class StackedGroup(RankGroup):
             self._src[key] = hit
         return hit
 
+    @spanned("exchange.permute")
     def permute(self, msgs, perm):
         padded = torch.cat([msgs, msgs.new_zeros((1,) + msgs.shape[1:])])
         return padded.index_select(0, self._sources(perm))
@@ -102,6 +105,7 @@ class ProcessGroup(RankGroup):
                       if dist.get_backend() == "nccl" else torch.device("cpu"))
         self.device = torch.device(device)
 
+    @spanned("exchange.permute")
     def permute(self, msgs, perm):
         me = self.rank
         send = msgs[0].contiguous()

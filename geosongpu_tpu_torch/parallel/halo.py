@@ -17,6 +17,7 @@ import torch
 
 from ..core.topology import NFACES, edge_twins, halo_spec
 from ..device import to_torch
+from ..spans import spanned
 
 
 @dataclass(frozen=True)
@@ -53,6 +54,7 @@ class HaloOps:
     def device(self) -> torch.device:
         return self.gidx_x.device
 
+    @spanned("halo.fill")
     def fill(self, field: torch.Tensor, direction: str = "x") -> torch.Tensor:
         """[6, n, n, ...] -> padded [6, N, N, ...].  direction picks the
         corner-block table: 'x' for x-direction stencils, 'y' for y."""
@@ -64,6 +66,7 @@ class HaloOps:
         flat = field.reshape((NFACES * n * n,) + trail)
         return flat.index_select(0, gidx).reshape((NFACES, N, N) + trail)
 
+    @spanned("halo.fill_vector")
     def fill_vector(self, vy: torch.Tensor, vx: torch.Tensor,
                     direction: str = "x"):
         """Pad a cell-centred vector (y-component, x-component), with the
@@ -90,12 +93,14 @@ class HaloOps:
         return (pa.reshape((NFACES, N + 1, N) + trail),
                 pb.reshape((NFACES, N, N + 1) + trail))
 
+    @spanned("halo.fill_dgrid")
     def fill_dgrid(self, u: torch.Tensor, v: torch.Tensor):
         """u [6, n+1, n, ...], v [6, n, n+1, ...] -> padded
         u [6, N+1, N, ...], v [6, N, N+1, ...] with the u<->v swap and sign
         changes across rotated face edges."""
         return self._stag_fill(u, v, self.u_sgn, self.v_sgn)
 
+    @spanned("halo.fill_cgrid")
     def fill_cgrid(self, uc: torch.Tensor, vc: torch.Tensor):
         """uc [6, n, n+1, ...]: x-normal wind on W/E interfaces (v-points);
         vc [6, n+1, n, ...]: y-normal wind on S/N interfaces (u-points) ->
@@ -137,6 +142,7 @@ def _twin_tables(n: int, device: torch.device):
             to_torch(sgn.astype("float32"), device))
 
 
+@spanned("halo.symmetrize")
 def symmetrize_shared_edges(u: torch.Tensor, v: torch.Tensor):
     """Average the two independently prognosed copies of every shared
     face-boundary staggered wind entry.  u [6, n+1, n, ...], v [6, n, n+1,

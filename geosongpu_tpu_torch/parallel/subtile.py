@@ -43,6 +43,7 @@ import torch
 
 from ..core.topology import NFACES, halo_spec
 from ..device import to_torch
+from ..spans import span, spanned
 from .comm import ProcessGroup, RankGroup, StackedGroup, available_ranks
 
 
@@ -561,6 +562,7 @@ class SubtileFiller:
         return torch.cat(flats, dim=1)
 
     # -- scalar, cell-centred --------------------------------------------
+    @spanned("halo.fill")
     def fill(self, field: torch.Tensor, direction: str = "x") -> torch.Tensor:
         if direction not in ("x", "y"):
             raise ValueError(f"direction must be 'x' or 'y', got {direction!r}")
@@ -568,12 +570,14 @@ class SubtileFiller:
         return self._unpack(full, self._sc_unpack[direction])
 
     # -- D-grid staggered winds ------------------------------------------
+    @spanned("halo.fill_dgrid")
     def fill_dgrid(self, u: torch.Tensor, v: torch.Tensor):
         full = self._exchange(self._with_zero(u, v), self._st_rounds)
         return (self._unpack(full, self._st_unpack["u_t"]),
                 self._unpack(full, self._st_unpack["v_t"]))
 
     # -- C-grid staggered normal winds -----------------------------------
+    @spanned("halo.fill_cgrid")
     def fill_cgrid(self, uc: torch.Tensor, vc: torch.Tensor):
         # vc has u's staggering, uc has v's (as HaloOps.fill_cgrid);
         # messages carry raw values, the normal signs are in the tables
@@ -582,6 +586,7 @@ class SubtileFiller:
                 self._unpack(full, self._st_unpack["u_n"]))
 
     # -- shared-edge symmetrization --------------------------------------
+    @spanned("halo.symmetrize")
     def symmetrize_dgrid(self, u: torch.Tensor, v: torch.Tensor):
         """Sharded form of parallel/halo.symmetrize_shared_edges: average
         the two independently prognosed copies of every face-boundary
@@ -737,14 +742,17 @@ def build_subtile_step(ctx, lay: SubtileLayout, group: RankGroup = None,
     lats_l = None if lats is None else _place_tuple(lay, group, lats)
     remap = _make_remap(cfg, ctx.device)
 
+    @spanned("step")
     def step(state):
-        out = fv_dynamics_step(state, lctx, remap=remap)
+        with span("dynamics"):
+            out = fv_dynamics_step(state, lctx, remap=remap)
         if forcing is not None:
             out = forcing(out, lats_l)
         if cfg.edge_symmetrize:
             # after the forcing, as the single-device model does
-            u, v = filler.symmetrize_dgrid(out.u, out.v)
-            out = dataclasses.replace(out, u=u, v=v)
+            with span("symmetrize"):
+                u, v = filler.symmetrize_dgrid(out.u, out.v)
+                out = dataclasses.replace(out, u=u, v=v)
         return out
 
     step.ctx = lctx

@@ -616,6 +616,43 @@ def test_nh_fused_model_on_card_matches_cpu(cuda):
                  [n, n, n, n, 0, n, n, n, 3])
 
 
+@pytest.mark.parametrize("form", ["hydrostatic", "nonhydrostatic",
+                                  "aquaplanet"])
+def test_kernel_spans_count_the_launches(cuda, form):
+    """Recorded on the card, each fused step holds one `kernel.<name>`
+    span per launch each wrapper's `launches` counter counts (dsw_nh_pert
+    inside dsw_wind, fill_q2_zero_tracers as fill_q2_zero), and the
+    recording leaves the state bit-identical."""
+    import collections
+
+    from geosongpu_tpu_torch import spans
+    from geosongpu_tpu_torch.models import aquaplanet
+    from geosongpu_tpu_torch.ops.kernels import launch_counts
+
+    build = build_model
+    cfg = dataclasses.replace(SMALL, ntracers=1, pallas_dycore=True)
+    if form == "nonhydrostatic":
+        cfg = dataclasses.replace(NH, ntracers=1, pallas_dycore=True)
+    elif form == "aquaplanet":
+        cfg = dataclasses.replace(SMALL, ntracers=3, pallas_dycore=True,
+                                  pallas_microphysics=True)
+        build = aquaplanet.build_model
+    model = build(cfg, cuda)
+    state = model.step(model.init(perturb=3.0))
+    ref = model.step(state)
+    before = launch_counts()
+    with spans.recording() as records:
+        got = model.step(state)
+    torch.cuda.synchronize()
+    launched = {k: n - before[k] for k, n in launch_counts().items()
+                if n != before[k]}
+    counted = collections.Counter(r.name[len("kernel."):] for r in records
+                                  if r.name.startswith("kernel."))
+    assert launched and dict(counted) == launched
+    for f in dataclasses.fields(ref):
+        assert torch.equal(getattr(got, f.name), getattr(ref, f.name)), f.name
+
+
 def test_blend_fused_model_on_card_matches_cpu(cuda):
     cfg = dataclasses.replace(SMALL, ntracers=1, pallas_dycore=True,
                               damping_exchange="blend")

@@ -8,8 +8,8 @@ against the JAX package's, on the CPU:
 - the device-interval union of a synthetic torch.profiler trace and of a
   synthetic xprof trace built from the same nested and overlapping
   intervals gives the same busy time, span, duty and duty series;
-- the byte model and the roofline, `TimedRegion` and `trace()`, the run
-  record's configuration hash, the stack fingerprint;
+- `TimedRegion`, `trace()` and `annotation`, the run record's
+  configuration hash, the stack fingerprint;
 - the host readings from /proc against psutil (imported here only);
 - the server and client round trip on the CPU, under a short socket path;
 - a sampler asked for the card with no NVML library raises.
@@ -25,7 +25,6 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from geosongpu_tpu.benchmark import profiler as j_prof  # noqa: E402
 from geosongpu_tpu.hws import analysis as j_an  # noqa: E402
 from geosongpu_tpu.hws import constants as j_const  # noqa: E402
 from geosongpu_tpu.hws import server as j_server  # noqa: E402
@@ -206,21 +205,6 @@ def test_device_busy_newest_gz_trace_and_missing(tmp_path):
 
 
 # ---- profiler.py ----------------------------------------------------------
-
-@pytest.mark.parametrize("npx,npz,ntracers,n_split", [
-    (48, 72, 1, 6), (192, 72, 1, 8), (48, 32, 3, 6)])
-def test_step_bytes_and_roofline_match_reference(npx, npz, ntracers,
-                                                 n_split):
-    args = (npx, npz, ntracers, n_split)
-    assert t_prof.dycore_step_bytes(*args) == j_prof.dycore_step_bytes(*args)
-    ref = j_prof.step_roofline(npx, npz, 0.05, ntracers, n_split)
-    got = t_prof.step_roofline(npx, npz, 0.05, ntracers, n_split)
-    assert got.label == ref.label and got.bytes_accessed == ref.bytes_accessed
-    assert got.achieved_bw == ref.achieved_bw
-    assert got.chip == "NVIDIA H100 80GB HBM3"
-    assert got.fraction_of_peak == got.achieved_bw / 3.35e12
-    assert str(got).endswith("% of NVIDIA H100 80GB HBM3 HBM peak")
-
 
 def test_timed_region_and_trace_on_cpu(tmp_path):
     timed = t_prof.TimedRegion()
