@@ -62,7 +62,12 @@ Without arguments, the phases:
    version (0.0).
    dsw_csw1, dsw_transport, dsw_tracer and dsw_tracer_acc within 1e-5 of
    max|plain|; dsw_csw2, dsw_wind and dsw_nh_pert within max(1e-4
-   max|plain|, 2e-3), for the column-sum order;
+   max|plain|, 2e-3), for the column-sum order; and the two chart-corner
+   kernels through ChartCorners on what the c192-L72 fused step hands
+   them (chart_scalar under its x, y and derived tables, on the x- and
+   y-fill of pt and dsw_csw1's vorticity; chart_agrid on the A-grid winds
+   of the filled D-grid winds), each call one launch that patches the
+   arrays it is given, equal to its plain version in every element;
 5. the seven column-physics kernels (gfdl_microphysics, fill_q2_zero,
    aer_activation, moist_rad_coup, cup_gf_sh, buoyancy, evap_subl_pdf)
    against their plain versions, within 1e-5 of max|plain|, and
@@ -87,7 +92,8 @@ Without arguments, the phases:
    stays at rest (nonhydrostatic: w and p' at rounding level; not for the
    JW06 preset, whose unperturbed state is a balanced flow), the steps
    stay finite, mass is conserved, and every kernel launches exactly as
-   often as the path prescribes (per step, PATHS below); the aquaplanet
+   often as the path prescribes (per step, PATHS below; the two
+   chart-corner kernels once a call of the corrections); the aquaplanet
    presets also pass the aquaplanet task's physical gates (vapour in
    [-1e-6, 0.06], surface pressure in (5e4, 1.2e5) Pa) and moisten;
 8. a torch.profiler window of 2 steps of each preset: device busy time,
@@ -200,8 +206,9 @@ kernels and of remap_banded go on a line of their own before those,
 object is the count of the fused Held-Suarez path (c192 and
 nonhydrostatic for those forms), of the fused aquaplanet path for
 gfdl_microphysics, fill_q2_zero and cup_gf_sh, of the gate path for
-the four kernels only the gate runs, and of the JW06 path for the rows
-`dsw_csw2 jw` and `dsw_wind jw` (the terrain form).
+the four kernels only the gate runs, of the JW06 path for the rows
+`dsw_csw2 jw` and `dsw_wind jw` (the terrain form), and of the c192 path
+for the chart-corner rows.
 
 Each kernel's bound in that object is the larger of two times computed
 here from the call's shapes: every input read and every output written
@@ -209,7 +216,9 @@ once at 3.35 TB/s (of the 36 PaddedMetrics arrays only those the kernel's
 stages read, METRICS_READ), and OPS_PER_POINT operations per output point
 at the card's 67 TFLOP/s of float32 outside the tensor cores; a column
 kernel counts only the arrays its formula reads (aer_activation takes t and
-p and moist_rad_coup and buoyancy take p without reading them).  No single
+p and moist_rad_coup and buoyancy take p without reading them), a
+chart-corner kernel only its corners' patches, weights and targets
+(chart_bound).  No single
 PyTorch call computes any of these stencil and column functions - the
 column physics are chains of tens of elementwise operations with a
 recurrence down the column, and PyTorch has no batched tridiagonal solver
@@ -268,6 +277,10 @@ KERNELS = {
                     True),
     "nh_vertical_solve": ("nh_vertical_solve.cu",
                           "geosongpu_tpu/dycore/nh_solver.py:57", False),
+    "chart_scalar": ("chart_corners.cu",
+                     "geosongpu_tpu/core/chart_corners.py:467", False),
+    "chart_agrid": ("chart_corners.cu",
+                    "geosongpu_tpu/core/chart_corners.py:504", False),
     "gfdl_microphysics": ("gfdl_microphysics.cu",
                           "geosongpu_tpu/ops/pallas/microphysics.py:152",
                           False),
@@ -334,34 +347,47 @@ UNREAD = {"aer_activation": (2, 3), "moist_rad_coup": (2,),
 C192_KERNELS = ["dsw_csw1", "dsw_csw2", "dsw_transport", "dsw_tracer_acc"]
 GATE_SHAPE, RAGGED_SHAPE = (128, 40), (123, 16)
 AQUA_COLUMNS = 6 * 48 * 48           # 13,824; c192: 221,184
-# preset -> (label, steps timed after 3 warm-up steps, launches per step)
+# preset -> (label, steps timed after 3 warm-up steps, launches per step).
+# The chart corners: each call of ChartCorners.apply_scalar / apply_agrid
+# is one launch; a substep makes 5 scalar calls (9 nonhydrostatic, with w,
+# delz and the per-substep tracer) and one A-grid call, a remap interval's
+# tracer pass one scalar call for delp and for each tracer a subcycle
+# (chart_per_step)
 PATHS = {
-    "held_suarez_c48_l72": ("eager", 5, {"remap_banded": 3}),
+    "held_suarez_c48_l72": ("eager", 5, {
+        "remap_banded": 3, "chart_scalar": 34, "chart_agrid": 6}),
     "held_suarez_c48_l72_fused": ("fused", 10, {
         "dsw_csw1": 6, "dsw_csw2": 6, "dsw_transport": 6, "dsw_wind": 6,
-        "dsw_tracer_acc": 2, "remap_banded": 3}),
+        "dsw_tracer_acc": 2, "remap_banded": 3, "chart_scalar": 34,
+        "chart_agrid": 6}),
     "held_suarez_c192_l72_fused": ("c192", 5, {       # n_split 8
         "dsw_csw1": 8, "dsw_csw2": 8, "dsw_transport": 8, "dsw_wind": 8,
-        "dsw_tracer_acc": 2, "remap_banded": 3}),
+        "dsw_tracer_acc": 2, "remap_banded": 3, "chart_scalar": 44,
+        "chart_agrid": 8}),
     "held_suarez_c48_l72_nh_fused": ("nh", 5, {
         "dsw_csw1": 6, "dsw_csw2": 6, "dsw_transport": 6, "dsw_wind": 6,
         "dsw_tracer": 6, "dsw_nh_pert": 6, "nh_vertical_solve": 6,
-        "remap_banded": 3}),
+        "remap_banded": 3, "chart_scalar": 54, "chart_agrid": 6}),
     # c48-L32, three tracers: dsw_tracer_acc 3 tracers x q_split 2; the
     # remap takes pt and the three tracers in one call, then u, then v;
     # the physics fills qv, ql and qr in one launch, mixes by cup_gf_sh and
     # runs the microphysics once
-    "aquaplanet_c48_l32": ("aqua-eager", 10, {"remap_banded": 3}),
+    "aquaplanet_c48_l32": ("aqua-eager", 10, {
+        "remap_banded": 3, "chart_scalar": 38, "chart_agrid": 6}),
     "aquaplanet_c48_l32_fused": ("aqua", 10, {
         "dsw_csw1": 6, "dsw_csw2": 6, "dsw_transport": 6, "dsw_wind": 6,
         "dsw_tracer_acc": 6, "remap_banded": 3, "fill_q2_zero": 1,
-        "cup_gf_sh": 1, "gfdl_microphysics": 1}),
+        "cup_gf_sh": 1, "gfdl_microphysics": 1, "chart_scalar": 38,
+        "chart_agrid": 6}),
     # c48-L26 with terrain, no tracers: the remap takes pt alone, then u,
     # then v
     "jw_baroclinic_c48_l26_fused": ("jw", 10, {
         "dsw_csw1": 6, "dsw_csw2": 6, "dsw_transport": 6, "dsw_wind": 6,
-        "remap_banded": 3}),
+        "remap_banded": 3, "chart_scalar": 30, "chart_agrid": 6}),
 }
+# phase 4: the chart-corner kernels on the c192-L72 fused step's inputs,
+# the scalar one under each of its three weight tables
+CHART_FORMS = ("x", "y", "derived")
 # phase 10: the JW06 validation through the port's dispatch, and the
 # reference's own calibration at c48-L26 (tests/test_baroclinic_wave.py:
 # steady 4-day max |ps - 1e5| and ps_min by day), printed beside it
@@ -378,6 +404,9 @@ CI_BENCHMARKS = {
     "aquaplanet_c48": ("aq", "aquaplanet_c48_l32", "aquaplanet_c48_l32_fused"),
 }
 CI_VALIDATION = "held_suarez_c192"   # eager c192-L72 on the one card
+# its step: the eager c48-L72 path's kernels at n_split 8
+CI_VALIDATION_STEP = {"remap_banded": 3, "chart_scalar": 44,
+                      "chart_agrid": 8}
 CI_STANDALONE = "physics_standalone_all"
 CI_CLIMATOLOGY = "hs_climatology_smoke"   # eager c12-L16, 4 + 6 days
 # phase 14, the sharded step on stacked ranks: the main path's preset on
@@ -604,6 +633,95 @@ def check_kernels(torch, dsw, args, names, form, card, results, reps=20):
               f"{err:.3e}, max rel err {rel:.3e}; kernel {k_ms:.4f} ms, plain "
               f"{p_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} (median of "
               f"{reps}; {card})")
+
+
+def chart_bound(F, K, h, agrid, mask=None):
+    """(bound ms, by) of one chart-corner call on F slots of K levels:
+    every corner's patch and weights read once and its targets written
+    once at 3.35 TB/s (the A-grid targets where `mask` is set), against a
+    subtraction and a fused multiply-add a scalar tap (3 operations) or a
+    fused multiply-add an A-grid tap (2) at 67 TFLOP/s."""
+    from geosongpu_tpu_torch.benchmark.bounds import (F32_FLOP_PER_S,
+                                                      HBM_BYTES_PER_S)
+
+    P, W = h + 4, h + 2
+    PP, WW = P * P, W * W
+    if agrid:
+        S = 2 * (P + 1) * P
+        masked = int(mask.sum()) * (F // mask.shape[0])
+        floats = 4 * F * (S * K + 2 * WW * S) + 2 * masked * K
+        ops = 4 * F * 2 * WW * K * 2 * S
+    else:
+        floats = 4 * F * (PP * K + WW * PP + WW * K)
+        ops = 4 * F * WW * K * (3 * PP + 1)
+    by = (4 * floats / HBM_BYTES_PER_S * 1e3, ops / F32_FLOP_PER_S * 1e3)
+    return max(by), ("bytes" if by[0] >= by[1] else "operations")
+
+
+def check_chart(torch, model, card, results, reps=10):
+    """Phase 4: the chart-corner kernels through ChartCorners, on what the
+    fused step hands them from `model`'s state after init and one step:
+    apply_scalar under each table of CHART_FORMS ('x': the x-fill of pt,
+    'y': its y-fill, 'derived': dsw_csw1's vorticity), apply_agrid on
+    a_grid_winds of the filled D-grid winds.  Each call one launch that
+    patches the array it is given, equal to its plain version in every
+    element; the median time of the call, of its plain version and the
+    bound.  results['chart_scalar <form> c192'], results['chart_agrid
+    c192']."""
+    from geosongpu_tpu_torch.dycore.sw import a_grid_winds, fill_substep
+    from geosongpu_tpu_torch.ops.kernels import chart as kchart
+    from geosongpu_tpu_torch.ops.kernels import dsw
+
+    ctx, cfg = model.ctx, model.config
+    chart, m, h = ctx.chart, ctx.metrics, ctx.chart.h
+    st = model.run(model.init(perturb=3.0), 1)
+    sub = fill_substep(ctx.ops, st.u, st.v, st.delp, st.pt, chart=chart)
+    ua, va = a_grid_winds(sub.pu, sub.pv, m)
+    winds = (ua.clone(), va.clone())
+    chart.apply_agrid(ua, va, sub.pu, sub.pv)
+    dt = cfg.dt / (cfg.k_split * cfg.n_split)
+    vort = dsw.dsw_csw1(sub.pu, sub.pv, ua, va, sub.pd_x, sub.pd_y, sub.pt_x,
+                        sub.pt_y, m, 0.5 * dt)[5]
+    fields = {"x": ctx.ops.fill(st.pt, "x"), "y": ctx.ops.fill(st.pt, "y"),
+              "derived": vort}
+    tables = {"x": chart.sc_dw_x, "y": chart.sc_dw_y, "derived": chart.sc_ex}
+
+    def one(key, counter, call, plain, inputs, bound_args):
+        before = [t.clone() for t in inputs]
+        n0 = counter.launches
+        got = call(*before)
+        torch.cuda.synchronize()
+        if counter.launches != n0 + 1:
+            fail(f"{key}: {counter.launches - n0} launches, not 1")
+        if not all(g is b for g, b in zip(got, before)):
+            fail(f"{key}: the call did not return the arrays it was given")
+        want = plain(*inputs)
+        equal_to_plain(key, got, want)
+        if all(torch.equal(g, t) for g, t in zip(got, inputs)):
+            fail(f"{key}: the call left the corners as they were")
+        scratch = [t.clone() for t in inputs]
+        k_ms = median_ms(torch, lambda: call(*scratch), reps=reps)
+        p_ms = median_ms(torch, lambda: plain(*inputs), reps=reps)
+        b_ms, b_by = chart_bound(*bound_args)
+        results[key] = (0.0, k_ms, p_ms, b_ms, b_by)
+        print(f"[kernel] {key} {tuple(inputs[0].shape)}: equal to its plain "
+              f"version in every element, one launch; kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} (median "
+              f"of {reps}; {card})")
+
+    for form in CHART_FORMS:
+        a = fields[form]
+        one(f"chart_scalar {form} c192", kchart.chart_scalar,
+            lambda x, form=form: (chart.apply_scalar(x, form),),
+            lambda x, form=form: (kchart.chart_scalar_plain(
+                x, tables[form], h),),
+            [a], (a.shape[0], a[0, 0, 0].numel(), h, False))
+    F, K = ua.shape[0], ua[0, 0, 0].numel()
+    one("chart_agrid c192", kchart.chart_agrid,
+        lambda u, v: chart.apply_agrid(u, v, sub.pu, sub.pv),
+        lambda u, v: kchart.chart_agrid_plain(u, v, sub.pu, sub.pv,
+                                              chart.st_w, chart.st_mask, h),
+        list(winds), (F, K, h, True, chart.st_mask))
 
 
 def device_times(prof):
@@ -1309,16 +1427,32 @@ def run_jw_validation(torch, counters, card):
               for d, m in enumerate(mins, 1)))
 
 
+def chart_per_step(dyc):
+    """A step's chart-corner launches under a hydrostatic `dyc`: each
+    substep its fills of delp and pt (and of the tracers without z_tracer),
+    the vorticity, the refills of delp and pt and one A-grid call; each
+    remap interval's tracer pass delp and each tracer a subcycle."""
+    if not dyc.chart_corners:
+        return {}
+    tracers = (dyc.q_split * (1 + dyc.ntracers)
+               if dyc.z_tracer and dyc.ntracers else 0)
+    sub = 5 + (1 if dyc.ntracers and not dyc.z_tracer else 0)
+    return {"chart_scalar": dyc.k_split * (dyc.n_split * sub + tracers),
+            "chart_agrid": dyc.k_split * dyc.n_split}
+
+
 def run_launches(dyc, steps, warmup, tree):
     """The exact launches of one run of the HeldSuarez task (the Aquaplanet
     task's too) of a hydrostatic model under `dyc`.  A step: the banded
     remap's three calls a remap interval; under pallas_dycore each of the
     four substep kernels once a substep and dsw_tracer_acc once a tracer
     and tracer subcycle a remap interval; under pallas_microphysics the
-    three physics kernels once.  The run: max(1, warmup) + steps steps and,
-    with a tree, its leaves, each called TREE_CALLS times: the step leaf a
-    step, the substep leaf one launch of each substep kernel, the tracer
-    and the remap leaf a remap interval's, the forcing leaf the physics."""
+    three physics kernels once; with chart corners the two chart kernels
+    once a call of the corrections.  The run: max(1, warmup) + steps steps
+    and, with a tree, its leaves, each called TREE_CALLS times: the step
+    leaf a step, the substep leaf one launch of each substep kernel, the
+    tracer and the remap leaf a remap interval's, the forcing leaf the
+    physics, and the eager stage split's calls outside any leaf once."""
     from geosongpu_tpu_torch.benchmark.phases import REPS
     from geosongpu_tpu_torch.harness.tasks.held_suarez import PHASE_INNER
 
@@ -1339,9 +1473,23 @@ def run_launches(dyc, steps, warmup, tree):
     if dyc.pallas_microphysics:
         for k in ("fill_q2_zero", "cup_gf_sh", "gfdl_microphysics"):
             per_step[k] = per_leaf[k] = 1
+    once = {}
+    if dyc.chart_corners:
+        # the tree: the fill leaf 2, the substep leaf 5 and 1, the tracer
+        # leaf its pass; the eager stage split's c_sw leaf 1 and 1 and wind
+        # leaf 2, and its fill and c_sw outside any leaf 3 and 1, once
+        per_step.update(chart_per_step(dyc))
+        tracers = (dyc.q_split * (1 + dyc.ntracers)
+                   if dyc.z_tracer and dyc.ntracers else 0)
+        eager = not dyc.pallas_dycore
+        per_leaf["chart_scalar"] = 7 + tracers + 3 * eager
+        per_leaf["chart_agrid"] = 1 + eager
+        if eager:
+            once = {"chart_scalar": 3, "chart_agrid": 1}
     tree_calls = 1 + REPS * PHASE_INNER if tree else 0
     want = {k: n * (max(1, warmup) + steps + tree_calls)
-            + per_leaf[k] * tree_calls for k, n in per_step.items()}
+            + per_leaf[k] * tree_calls + (once.get(k, 0) if tree else 0)
+            for k, n in per_step.items()}
     return per_step, want
 
 
@@ -1448,7 +1596,8 @@ def run_ci_pipelines(torch, counters, card, limit_w, idle_w):
         return env, time.perf_counter() - t0, {
             k: fn.launches for k, fn in counters.items() if fn.launches}
 
-    def check_records(exp, env, key, presets, tree):
+    def check_records(exp, env, key, steps_of, tree):
+        """steps_of: each member's launches a step, as PATHS gives them."""
         records = env.get(f"{key}.records")
         cfg = env.config
         configs = [cfg.dycore] if not tree else [
@@ -1456,12 +1605,12 @@ def run_ci_pipelines(torch, counters, card, limit_w, idle_w):
                 cfg.dycore, pallas_dycore=True,
                 pallas_microphysics=cfg.model == "aquaplanet")]
         total = {}
-        for rec, dyc, preset in zip(records, configs, presets):
+        for rec, dyc, step in zip(records, configs, steps_of):
             per_step, want = run_launches(dyc, cfg.run.steps,
                                           cfg.run.warmup_steps, tree)
-            if per_step != PATHS[preset][2]:
+            if per_step != step:
                 fail(f"{exp} [{rec.backend}]: a step's launches {per_step} "
-                     f"are not {preset}'s {PATHS[preset][2]}")
+                     f"are not {step}")
             check_launches(f"{exp} [{rec.backend}]", rec.extra["launches"],
                            want)
             for k, n in rec.extra["launches"].items():
@@ -1471,7 +1620,8 @@ def run_ci_pipelines(torch, counters, card, limit_w, idle_w):
 
     for exp, (key, eager, fused) in CI_BENCHMARKS.items():
         env, sec, got = run(exp, "Benchmark", key)
-        records, total = check_records(exp, env, key, (eager, fused), True)
+        records, total = check_records(
+            exp, env, key, (PATHS[eager][2], PATHS[fused][2]), True)
         del env
         check_launches(f"{exp} Benchmark (the dispatch)", got, total)
         c = compare(*records)
@@ -1486,7 +1636,7 @@ def run_ci_pipelines(torch, counters, card, limit_w, idle_w):
 
     env, sec, got = run(CI_VALIDATION, "Validation", "hs")
     (rec,), total = check_records(CI_VALIDATION, env, "hs",
-                                  ("held_suarez_c48_l72",), False)
+                                  (CI_VALIDATION_STEP,), False)
     (mean_w,) = env.get("hws.mean_w")
     del env
     check_launches(f"{CI_VALIDATION} Validation (the dispatch)", got, total)
@@ -1506,15 +1656,19 @@ def run_ci_pipelines(torch, counters, card, limit_w, idle_w):
     every = max(1, per_day // 4)
     steps = (int(raw["spinup_days"] * per_day)
              + -(-int(raw["avg_days"] * per_day) // every) * every)
-    check_launches(f"{CI_CLIMATOLOGY} Validation", got,
-                   {"remap_banded": 3 * cfg.dycore.k_split * steps})
+    check_launches(f"{CI_CLIMATOLOGY} Validation", got, {
+        k: n * steps for k, n in dict(
+            remap_banded=3 * cfg.dycore.k_split,
+            **chart_per_step(cfg.dycore)).items()})
     if env.get("clim.device") != "cuda":
         fail(f"{CI_CLIMATOLOGY}: ran on {env.get('clim.device')}")
     ubar = env.get("clim.ubar")
     print(f"[ci] {CI_CLIMATOLOGY} Validation through dispatch on "
           f"{env.get('clim.device')} in {sec:.1f} s ({steps} steps of "
           f"c{cfg.dycore.npx}-L{cfg.dycore.npz}, {1e3 * sec / steps:.2f} "
-          f"ms/step with the set-up), its HS94 gates passed, max zonal-mean"
+          f"ms/step with the set-up), its HS94 gates passed, launches "
+          + ", ".join(f"{k} {v}" for k, v in got.items())
+          + ", max zonal-mean"
           f" u {ubar.max():.2f} m/s ({card})")
     del env
 
@@ -2141,7 +2295,7 @@ def run_sharded(torch, np, counters, build_model_for, card, results, dev):
         torch, np, build_model_for(SHARDED_PRESET)(
             replace(fused, chart_corners=False), dev),
         dict(face=1, y=2, x=4), "c48 fused (2,4) without chart corners",
-        counters, per_step, card)
+        counters, dict(per_step, chart_scalar=0, chart_agrid=0), card)
     locate_difference(torch, np, model, card)
     # b. face-sharded (6, 2, 2): 24 ranks, the 6*NX*NY rank shape
     sharded_vs_single(torch, np, model, dict(face=6, y=2, x=2),
@@ -2154,9 +2308,13 @@ def run_sharded(torch, np, counters, build_model_for, card, results, dev):
     plain = build_model_for("held_suarez_c48_l72")(eager, dev)
     split = build_model_for("held_suarez_c48_l72")(
         replace(eager, overlap_fills=True, rim_split=True), dev)
+    per_eager = PATHS["held_suarez_c48_l72"][2]
+    # overlap_fills takes each substep's refills of delp and pt as the next
+    # substep's pads: two chart calls fewer a substep after the first
     sharded_vs_single(torch, np, split, dict(face=1, y=2, x=4),
                       "c48 eager overlap_fills+rim_split (2,4)", counters,
-                      PATHS["held_suarez_c48_l72"][2], card,
+                      dict(per_eager, chart_scalar=per_eager["chart_scalar"]
+                           - 2 * (eager.n_split - 1)), card,
                       rest_reference=plain)
     del model, plain, split
     torch.cuda.empty_cache()
@@ -2297,14 +2455,15 @@ def serialbox_blocks(torch, np, build_model_for, dev, tmp):
 def step_bytes(torch, np, model, dev):
     """Phase 3/4's bytes a step of the fused c48-L72 path moves: each
     substep kernel's bound bytes on kernel_inputs times its launches a
-    step, and remap_banded's over the step's three calls."""
+    step, and remap_banded's over the step's three calls (the roofline's
+    recorder, which these bytes check, keeps no chart-corner call)."""
     from geosongpu_tpu_torch.ops.kernels import dsw
 
     per_step = PATHS[SHARDED_PRESET][2]
     args = kernel_inputs(torch, np, model, dev)
     out = {}
     for name, n in per_step.items():
-        if name == "remap_banded":
+        if name not in args:
             continue
         got = getattr(dsw, name)(*args[name])
         out[name] = n * moved_bytes(tensors_of(args[name],
@@ -2424,6 +2583,7 @@ def main() -> int:
         from geosongpu_tpu_torch.hws.nvml import NVML
         from geosongpu_tpu_torch.hws.server import Sampler
         from geosongpu_tpu_torch.ops.kernels import build, dsw
+        from geosongpu_tpu_torch.ops.kernels import chart as kchart
         from geosongpu_tpu_torch.ops.kernels import columns as kcol
         from geosongpu_tpu_torch.ops.kernels import microphysics as kmic
         from geosongpu_tpu_torch.ops.kernels import remap as kremap
@@ -2434,8 +2594,8 @@ def main() -> int:
         fail(f"run from the root of a checkout (port not importable: {e})")
     dev = torch.device("cuda")
     counters = {k.__name__: k for k in (
-        (kremap.remap_banded,) + dsw.KERNELS + (kmic.gfdl_microphysics,)
-        + kcol.KERNELS + ktw.KERNELS)}
+        (kremap.remap_banded,) + dsw.KERNELS + kchart.KERNELS
+        + (kmic.gfdl_microphysics,) + kcol.KERNELS + ktw.KERNELS)}
     if list(counters) != list(KERNELS):
         fail(f"the wrappers {list(counters)} are not the kernels of KERNELS")
 
@@ -2575,6 +2735,8 @@ def main() -> int:
                   reps=10)
     check_kernels(torch, dsw, args, C192_KERNELS, "c192", card, results,
                   reps=10)
+    del args
+    check_chart(torch, model_of("held_suarez_c192_l72_fused"), card, results)
     # the terrain term: dsw_csw2 and dsw_wind on the JW06 model's inputs,
     # whose context carries the balancing surface geopotential
     jw = model_of(JW_PRESET)
@@ -2674,7 +2836,10 @@ def main() -> int:
         ("fill_q2_zero", "fill_q2_zero", "aqua")] + [
         (k, k, "aqua" if k == "cup_gf_sh" else "gate")
         for k in COLUMN_PHYSICS[2:]] + [
-        ("dsw_csw2 jw", "dsw_csw2", "jw"), ("dsw_wind jw", "dsw_wind", "jw")]
+        ("dsw_csw2 jw", "dsw_csw2", "jw"),
+        ("dsw_wind jw", "dsw_wind", "jw")] + [
+        (f"chart_scalar {f} c192", "chart_scalar", "c192")
+        for f in CHART_FORMS] + [("chart_agrid c192", "chart_agrid", "c192")]
     for key, k, path in entries:
         if launches[path][k] < 1:
             fail(f"{key}: not launched on the {path} path")

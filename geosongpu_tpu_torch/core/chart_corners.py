@@ -19,12 +19,15 @@ The table side (`ChartCornerTables`, `build_chart_tables`,
 `chart_cosa_overrides`, `chart_corner_dw`) is numpy, the port's own copy
 of the reference's table functions, held to them bit for bit by
 tests/test_torch_core.py.  The apply side (`ChartCorners`) moves the
-weights to the device once and applies them with torch, in the
-reference's order: each corner's patch is read from the INPUT array and
-its base from the running output, one static-slice block update per
-corner.  The weights are per slot of the leading axis: the six faces on
-one device, or, for the blocks of a sharded step, each block's face with
-the corners its block does not own gated off (`sharded_chart_for_subtile`).
+weights to the device once and patches the corner squares of the
+caller's array in place: on the card one launch of a hand kernel a call
+(ops/kernels/chart.py, csrc/chart_corners.cu); elsewhere with torch, in
+the reference's order: every corner's patch is read from the input as it
+came, its base from the array as the earlier corners left it, one
+static-slice block update per corner.  The weights are per slot of the
+leading axis: the six faces on one device, or, for the blocks of a sharded
+step, each block's face with the corners its block does not own gated off
+(`sharded_chart_for_subtile`).
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import numpy as np
 import torch
 
 from ..device import to_torch
+from ..ops.kernels import chart as chart_kernels
 from ..spans import spanned
 from .topology import FACE_FRAMES, NFACES, face_point, halo_spec
 
@@ -453,7 +457,7 @@ def chart_corner_dw(n: int, h: int) -> np.ndarray:
 
 
 # --------------------------------------------------------------------------
-# application (torch, outside the kernels)
+# application (torch; on the card the kernels of ops/kernels/chart.py)
 # --------------------------------------------------------------------------
 
 @dataclass(frozen=True)
@@ -498,38 +502,58 @@ class ChartCorners:
         """Resample the corner L-regions of a padded [F, Ny, Nx, ...] scalar
         onto the chart gridpoints, in deviation form (uniform fields stay
         bit-exact).  direction: 'x', 'y', or 'derived' (one-sided weights
-        for fields whose L-region values are invalid)."""
+        for fields whose L-region values are invalid).  Patches `a` in
+        place and returns it: the callers pass a fresh fill or a fresh
+        kernel output.  On the card one kernel launch."""
         W_all = {"x": self.sc_dw_x, "y": self.sc_dw_y,
                  "derived": self.sc_ex}[direction]
+        if a.is_cuda:
+            return chart_kernels.chart_scalar(a, W_all, self.h)
+        return self._scalar_einsum(a, W_all)
+
+    def _scalar_einsum(self, a: torch.Tensor, W_all: torch.Tensor):
+        """apply_scalar with torch, one einsum a corner, into `a`."""
         h = self.h
         Ny, Nx = a.shape[1], a.shape[2]
         P = _patch_width(h)
         W = h + 2
-        out = a.clone()
+        # every patch as it came: a square written below may lie inside
+        # another corner's patch on narrow blocks
+        samps = []
         for cid in range(4):
             ys, xs = _corner_patch_slices(Ny, Nx, P, P, cid)
+            patch = a[:, ys, xs].clone(memory_format=torch.contiguous_format)
+            samps.append(patch.reshape((patch.shape[0], P * P)
+                                       + patch.shape[3:]))
+        for cid, samp in enumerate(samps):
             ysq, xsq = _corner_patch_slices(Ny, Nx, W, W, cid)
             Wd = W_all[:, cid]                        # [F, WW, PP]
-            patch = a[:, ys, xs]
-            samp = patch.reshape((patch.shape[0], P * P) + patch.shape[3:])
-            blk = out[:, ysq, xsq]
+            blk = a[:, ysq, xsq]
             base = blk.reshape((blk.shape[0], W * W) + blk.shape[3:])
             dev = samp[:, None] - base[:, :, None]   # [F, WW, PP, ...]
             corr = torch.einsum("fwp,fwp...->fw...", Wd, dev)
-            out[:, ysq, xsq] = (base + corr).reshape(blk.shape)
-        return out
+            a[:, ysq, xsq] = (base + corr).reshape(blk.shape)
+        return a
 
     @spanned("chart.agrid")
     def apply_agrid(self, ua, va, pu, pv):
         """Overwrite the corner targets of the A-grid winds with the chart
         reconstruction from the padded D-grid winds; other slots of each
-        W x W square keep their current values."""
+        W x W square keep their current values.  Patches ua and va in place
+        and returns them: the callers pass a_grid_winds' fresh ua, va.  On
+        the card one kernel launch."""
+        if ua.is_cuda:
+            return chart_kernels.chart_agrid(ua, va, pu, pv, self.st_w,
+                                             self.st_mask, self.h)
+        return self._agrid_einsum(ua, va, pu, pv)
+
+    def _agrid_einsum(self, ua, va, pu, pv):
+        """apply_agrid with torch, one einsum a corner, into ua and va."""
         h = self.h
         Ny, Nx = ua.shape[1], ua.shape[2]
         P = _patch_width(h)
         W = h + 2
         WW = W * W
-        ua_out, va_out = ua.clone(), va.clone()
         for cid in range(4):
             uys, uxs = _corner_patch_slices(Ny + 1, Nx, P + 1, P, cid)
             vys, vxs = _corner_patch_slices(Ny, Nx + 1, P, P + 1, cid)
@@ -544,12 +568,12 @@ class ChartCorners:
             rec = torch.einsum("fws,fs...->fw...", Wd, samp)
             mshape = (self.st_mask.shape[0], WW) + (1,) * (rec.ndim - 2)
             mask = self.st_mask[:, cid].reshape(mshape)
-            for comp, tgt in ((0, ua_out), (1, va_out)):
+            for comp, tgt in ((0, ua), (1, va)):
                 blk = tgt[:, ysq, xsq]
                 cur = blk.reshape((blk.shape[0], WW) + blk.shape[3:])
                 new = torch.where(mask, rec[:, comp * WW:(comp + 1) * WW], cur)
                 tgt[:, ysq, xsq] = new.reshape(blk.shape)
-        return ua_out, va_out
+        return ua, va
 
 
 def sharded_chart_for_subtile(chart: ChartCorners, layout, ranks):

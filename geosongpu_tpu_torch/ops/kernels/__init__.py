@@ -4,11 +4,11 @@ kernel."""
 
 
 def _wrappers() -> tuple:
-    from . import columns, dsw, microphysics, remap, standalone_twins
+    from . import chart, columns, dsw, microphysics, remap, standalone_twins
 
     return ((remap.remap_banded,) + dsw.KERNELS
             + (microphysics.gfdl_microphysics,) + columns.KERNELS
-            + standalone_twins.KERNELS)
+            + standalone_twins.KERNELS + chart.KERNELS)
 
 
 def launch_counts() -> dict:

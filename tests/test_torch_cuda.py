@@ -5,6 +5,8 @@ kernels, gfdl_microphysics and fill_q2_zero in every element at the edges
 of their tiles of columns, fill_q2_zero in its multi-tracer form too,
 cup_gf_sh and aer_activation in every element across their blocks' runs
 of points and on inputs off a 16-byte boundary)
+and the two chart-corner kernels (chart_scalar, chart_agrid: in place, at
+the c48-L72 and c192-L72 shapes and on the gated slots of the (2,4) step)
 against their plain PyTorch versions, their input checks, the physics gate
 on the card, the hardware sampler's NVML readings of the card (the handle
 is torch's device, the energy counter never decreases, the utilization
@@ -649,8 +651,138 @@ def test_kernel_spans_count_the_launches(cuda, form):
     counted = collections.Counter(r.name[len("kernel."):] for r in records
                                   if r.name.startswith("kernel."))
     assert launched and dict(counted) == launched
+    # each chart-corner call is one launch of its kernel
+    calls = collections.Counter(r.name for r in records
+                                if r.name.startswith("chart."))
+    assert launched["chart_scalar"] == calls["chart.scalar"] > 0
+    assert launched["chart_agrid"] == calls["chart.agrid"] > 0
     for f in dataclasses.fields(ref):
         assert torch.equal(getattr(got, f.name), getattr(ref, f.name)), f.name
+
+
+# chart corners (csrc/chart_corners.cu): c48-L72, c192-L72 and the gated
+# slots of the c48 (2,4) stacked step (48 slots of 24 x 12 cells)
+CHART_CASES = ["c48", "c192", "c48 (2,4)"]
+CHART_FORMS = ["x", "y", "derived", "agrid"]
+
+
+@pytest.fixture(scope="module")
+def chart_tables():
+    from geosongpu_tpu_torch.core.chart_corners import build_chart_tables
+
+    return {}, build_chart_tables
+
+
+def _chart_case(chart_tables, case, dev):
+    """(ChartCorners on dev, F, Ny, Nx) of a case, halo 3."""
+    from geosongpu_tpu_torch.core.chart_corners import (
+        ChartCorners, sharded_chart_for_subtile)
+    from geosongpu_tpu_torch.parallel.subtile import SubtileLayout
+
+    cache, build = chart_tables
+    n = 192 if case == "c192" else 48
+    if n not in cache:
+        cache[n] = build(n, 3)
+    chart = ChartCorners.from_tables(cache[n], dev)
+    if case.endswith("(2,4)"):
+        lay = SubtileLayout(n=n, h=3, py=2, px=4, face_sharded=False)
+        chart = sharded_chart_for_subtile(chart, lay, range(lay.ndevices))
+        return chart, chart.sc_dw_x.shape[0], n // 2 + 6, n // 4 + 6
+    return chart, 6, n + 6, n + 6
+
+
+def _squares(F, Ny, Nx, W, dev):
+    """bool [F, Ny, Nx, 1]: the four W x W corner squares."""
+    m = torch.zeros((F, Ny, Nx, 1), dtype=torch.bool, device=dev)
+    for ys in (slice(0, W), slice(Ny - W, Ny)):
+        for xs in (slice(0, W), slice(Nx - W, Nx)):
+            m[:, ys, xs] = True
+    return m
+
+
+@pytest.mark.parametrize("form", CHART_FORMS)
+@pytest.mark.parametrize("case", CHART_CASES)
+def test_chart_kernels_equal_plain(cuda, chart_tables, case, form):
+    """Each call of apply_scalar / apply_agrid on CUDA float32 arrays is
+    one launch that patches the caller's arrays in place: 0.0 from the
+    plain version; on the six faces 0.0 from the einsum form on the card
+    too (the kernels sum in the order of its cuBLAS products there, which
+    the benchmark's plain reference runs), on the (2,4) slots within
+    float32 rounding of it; every slot outside the corner squares (outside
+    the masked targets for the A-grid winds) bit for bit as it was."""
+    from geosongpu_tpu_torch.ops.kernels import chart as kchart
+
+    chart, F, Ny, Nx = _chart_case(chart_tables, case, cuda)
+    h, K = chart.h, 72
+    rng = np.random.default_rng(sum(map(ord, case + form)))
+
+    def rand(*shape, offset=0.0):
+        return torch.from_numpy(
+            offset + rng.standard_normal(shape).astype(np.float32)).to(cuda)
+
+    if form == "agrid":
+        ua, va = rand(F, Ny, Nx, K), rand(F, Ny, Nx, K)
+        pu, pv = rand(F, Ny + 1, Nx, K), rand(F, Ny, Nx + 1, K)
+        before = [ua.clone(), va.clone()]
+        want = kchart.chart_agrid_plain(ua, va, pu, pv, chart.st_w,
+                                        chart.st_mask, h)
+        einsum = chart._agrid_einsum(ua.clone(), va.clone(), pu, pv)
+        n0 = kchart.chart_agrid.launches
+        got = chart.apply_agrid(ua, va, pu, pv)
+        assert got[0] is ua and got[1] is va
+        assert kchart.chart_agrid.launches == n0 + 1
+        # the masked target slots of each corner's W x W square
+        W = h + 2
+        keep = ~_squares(F, Ny, Nx, W, cuda)
+        for c, (ys, xs) in enumerate([(slice(0, W), slice(0, W)),
+                                      (slice(0, W), slice(Nx - W, Nx)),
+                                      (slice(Ny - W, Ny), slice(0, W)),
+                                      (slice(Ny - W, Ny), slice(Nx - W, Nx))]):
+            m = chart.st_mask[:, c].reshape(-1, W, W, 1)
+            keep[:, ys, xs] = ~m.expand(F, W, W, 1)
+    else:
+        a = rand(F, Ny, Nx, K, offset=300.0)
+        before = [a.clone()]
+        table = {"x": chart.sc_dw_x, "y": chart.sc_dw_y,
+                 "derived": chart.sc_ex}[form]
+        want = (kchart.chart_scalar_plain(a, table, h),)
+        einsum = (chart._scalar_einsum(a.clone(), table),)
+        n0 = kchart.chart_scalar.launches
+        got = (chart.apply_scalar(a, form),)
+        assert got[0] is a
+        assert kchart.chart_scalar.launches == n0 + 1
+        keep = ~_squares(F, Ny, Nx, chart.h + 2, cuda)
+    torch.cuda.synchronize()
+    for g, w, e, b in zip(got, want, einsum, before):
+        assert torch.equal(g, w)
+        gap = float((g - e).abs().max() / e.abs().max())
+        print(f"chart {case} {form}: kernel against the einsum form "
+              f"{gap:.3e} of max|x|")
+        # 0.0: the kernels sum in the order of the einsum's cuBLAS products,
+        # as fitted on torch 2.11.0+cu128 with cuBLAS 12.9.2
+        # (csrc/chart_corners.cu); another version may order them otherwise
+        assert gap == 0.0 if F == 6 else gap <= 1e-5
+        k = keep.expand_as(g)
+        assert torch.equal(g[k], b[k])
+        assert not torch.equal(g, b)
+
+
+def test_chart_wrappers_reject_bad_inputs(cuda, chart_tables):
+    from geosongpu_tpu_torch.ops.kernels import chart as kchart
+
+    chart, F, Ny, Nx = _chart_case(chart_tables, "c48", cuda)
+    a = torch.zeros((F, Ny, Nx, 8), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        kchart.chart_scalar(a.transpose(1, 2), chart.sc_dw_x, 3)
+    with pytest.raises(ValueError, match="too few"):
+        kchart.chart_scalar(a[:, :9], chart.sc_dw_x, 3)
+    with pytest.raises(ValueError, match="weights"):
+        kchart.chart_scalar(a[:5].contiguous(), chart.sc_dw_x, 3)
+    with pytest.raises(ValueError, match="mask"):
+        kchart.chart_agrid(a, a.clone(), torch.zeros((F, Ny + 1, Nx, 8),
+                                                      device=cuda),
+                           torch.zeros((F, Ny, Nx + 1, 8), device=cuda),
+                           chart.st_w, chart.st_mask.float(), 3)
 
 
 def test_blend_fused_model_on_card_matches_cpu(cuda):

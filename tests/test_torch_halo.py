@@ -91,7 +91,7 @@ def test_apply_scalar(ops, chart, direction):
 def test_apply_scalar_keeps_uniform_fields_exact(chart):
     _, tchart = chart
     a = torch.full((6, N + 2 * H, N + 2 * H, K), 287.5)
-    assert torch.equal(tchart.apply_scalar(a, "x"), a)
+    assert torch.equal(tchart.apply_scalar(a.clone(), "x"), a)
 
 
 def test_apply_agrid(ops, chart):
@@ -107,3 +107,105 @@ def test_apply_agrid(ops, chart):
     gua, gva = tchart.apply_agrid(*(_t(x) for x in (ua, va, pu, pv)))
     _close(gua.numpy(), rua)
     _close(gva.numpy(), rva)
+
+
+# the gated slot tables of a sharded step: slot k takes face FACES[k]'s
+# weights, its corners where GATES[k] is 1
+FACES = (0, 0, 1, 1, 2, 3)
+GATES = ((1, 0, 0, 0), (0, 1, 0, 0), (0, 0, 1, 1), (0, 0, 0, 0),
+         (1, 1, 1, 1), (0, 0, 1, 0))
+
+
+@pytest.mark.parametrize("case", ["x", "y", "derived", "agrid",
+                                  "slots x", "slots agrid", "narrow x",
+                                  "narrow agrid"])
+def test_fixed_order_plain_matches_einsum(chart, case):
+    """The kernels' plain versions (ops/kernels/chart.py, taps summed in a
+    fixed order) against ChartCorners' einsum form within float32 rounding,
+    for every weight table and a gated table, and on blocks so narrow
+    (4 cells and the halo) that one corner's patch reaches into another
+    corner's square; apply_* on CPU tensors is the einsum form, the CPU
+    wrapper the plain version, and each patches the arrays it is given in
+    place and returns them."""
+    from geosongpu_tpu_torch.ops.kernels import chart as kchart
+
+    _, tchart = chart
+    if case.startswith("slots"):
+        tchart = tchart.for_slots(FACES, GATES)
+    Np = 4 + 2 * H if case.startswith("narrow") else N + 2 * H
+    rng = np.random.default_rng(11)
+    if case.endswith("agrid"):
+        ua, va, pu, pv = (torch.from_numpy(rng.standard_normal(s).astype(
+            np.float32)) for s in ((6, Np, Np, K), (6, Np, Np, K),
+                                   (6, Np + 1, Np, K), (6, Np, Np + 1, K)))
+        got = kchart.chart_agrid_plain(ua, va, pu, pv, tchart.st_w,
+                                       tchart.st_mask, H)
+        routed = [ua.clone(), va.clone()]
+        assert all(r is b for r, b in zip(kchart.chart_agrid(
+            *routed, pu, pv, tchart.st_w, tchart.st_mask, H), routed))
+        assert all(torch.equal(a, b) for a, b in zip(routed, got))
+        want = [ua.clone(), va.clone()]
+        assert all(r is b for r, b in zip(tchart.apply_agrid(*want, pu, pv),
+                                          want))
+    else:
+        direction = case.split()[-1]
+        table = {"x": tchart.sc_dw_x, "y": tchart.sc_dw_y,
+                 "derived": tchart.sc_ex}[direction]
+        a = torch.from_numpy(300.0 + rng.standard_normal((6, Np, Np, K))
+                             .astype(np.float32))
+        got = (kchart.chart_scalar_plain(a, table, H),)
+        routed = a.clone()
+        assert kchart.chart_scalar(routed, table, H) is routed
+        assert torch.equal(routed, got[0])
+        want = (a.clone(),)
+        assert tchart.apply_scalar(want[0], direction) is want[0]
+    for g, w in zip(got, want):
+        _close(g.numpy(), w.numpy(), rtol=2e-7)
+
+
+def test_fixed_order_plain_keeps_uniform_fields_exact(chart):
+    """Deviation form: the plain version leaves a uniform field bit for bit,
+    under every table."""
+    from geosongpu_tpu_torch.ops.kernels import chart as kchart
+
+    _, tchart = chart
+    a = torch.full((6, N + 2 * H, N + 2 * H, K), 287.5)
+    for table in (tchart.sc_dw_x, tchart.sc_dw_y, tchart.sc_ex):
+        assert torch.equal(kchart.chart_scalar_plain(a, table, H), a)
+
+
+def _round_f32(x):
+    """The float32 nearest an exact Fraction x, ties to even."""
+    from fractions import Fraction
+
+    lo = np.float32(float(x))
+    if Fraction(float(lo)) > x:
+        lo = np.nextafter(lo, np.float32(-np.inf))
+    hi = np.nextafter(lo, np.float32(np.inf))
+    dl, dh = x - Fraction(float(lo)), Fraction(float(hi)) - x
+    if dl != dh:
+        return lo if dl < dh else hi
+    return lo if int(lo.view(np.int32)) % 2 == 0 else hi
+
+
+def test_plain_fma_rounds_once():
+    """The plain versions' fused multiply-add rounds a * b + c once, as the
+    card's fmaf: on random operands and where float64's own rounding lands
+    on a float32 tie (1 + 2^-23 + 2^-24 - 2^-70 rounds down, not to even)."""
+    from fractions import Fraction
+
+    from geosongpu_tpu_torch.ops.kernels.chart import _fma
+
+    rng = np.random.default_rng(5)
+    a, b, c = (rng.standard_normal(64).astype(np.float32) for _ in range(3))
+    ties = np.array([[1 + 2**-23, 2**-24 * (1 - 2**-23), 1 + 2**-23],
+                     [1 + 2**-23, -2**-24 * (1 - 2**-23), -(1 + 2**-23)]],
+                    np.float32)
+    a, b, c = (np.concatenate([v, ties[:, i]])
+               for i, v in enumerate((a, b, c)))
+    got = _fma(*(torch.from_numpy(v) for v in (a, b, c))).numpy()
+    want = [_round_f32(Fraction(float(x)) * Fraction(float(y))
+                       + Fraction(float(z))) for x, y, z in zip(a, b, c)]
+    assert got.tobytes() == np.array(want, np.float32).tobytes()
+    naive = (a.astype(np.float64) * b + c).astype(np.float32)
+    assert (naive[-2:] != got[-2:]).all()   # float64 alone rounds twice

@@ -161,15 +161,16 @@ def test_aquaplanet_kernel_path_for_cuda_raises_without_cuda():
 def test_every_kernel_source_has_a_counting_wrapper():
     """Each csrc/*.cu entry `<name>_f32` is launched by a wrapper `<name>`
     with a `launches` counter and a `<name>_plain` beside it."""
-    from geosongpu_tpu_torch.ops.kernels import (columns, dsw, microphysics,
-                                                 remap, standalone_twins)
+    from geosongpu_tpu_torch.ops.kernels import (chart, columns, dsw,
+                                                 microphysics, remap,
+                                                 standalone_twins)
 
-    modules = (columns, dsw, microphysics, remap, standalone_twins)
+    modules = (chart, columns, dsw, microphysics, remap, standalone_twins)
     entries = set()
     for src in (PKG / "csrc").glob("*.cu"):
         entries |= set(re.findall(r'extern "C" int (\w+)_f32\(',
                                   src.read_text()))
-    assert len(entries) == 16
+    assert len(entries) == 18
     for name in entries:
         owners = [m for m in modules if hasattr(m, name)]
         assert len(owners) == 1, name
@@ -272,7 +273,7 @@ def test_chip_smoke_counts_only_the_metrics_a_kernel_reads():
     METRICS_READ: per kernel, over all its forms and dsw_wind's optional
     rotational damping, that is every field its own source reads, and
     nothing beyond what that source and the shared stages of
-    dsw_common.cuh read."""
+    dsw_common.cuh read; the two chart-corner kernels read none."""
     from geosongpu_tpu_torch.benchmark.bounds import VTX_METRICS
     from geosongpu_tpu_torch.dycore.sw import PaddedMetrics
 
@@ -283,6 +284,11 @@ def test_chip_smoke_counts_only_the_metrics_a_kernel_reads():
     assert set(smoke.METRICS_READ) == set(smoke.OPS_PER_POINT)
     shared = _metric_uses("dsw_common.cuh")
     for kernel, (source, _, _) in smoke.KERNELS.items():
+        if kernel in ("chart_scalar", "chart_agrid"):
+            # bound by chart_bound: the corners' patches, weights and
+            # targets, no metric array
+            assert not _metric_uses(source), kernel
+            continue
         forms = [k for k in smoke.METRICS_READ if k.split()[0] == kernel]
         assert forms, kernel
         named = set().union(*(smoke.METRICS_READ[k] for k in forms))

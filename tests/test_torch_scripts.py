@@ -149,7 +149,10 @@ def test_roofline_recorder_counts_the_bound_bytes():
         got[name] += nbytes
         n[name] += 1
     smoke = _chip_smoke()
-    assert dict(n) == smoke.PATHS[FUSED][2]
+    # the recorder keeps the substep kernels and the remap, not the
+    # chart-corner calls
+    assert dict(n) == {k: v for k, v in smoke.PATHS[FUSED][2].items()
+                       if k not in ("chart_scalar", "chart_agrid")}
     want = smoke.step_bytes(torch, np, model, CPU)
     assert set(want) == set(got)
     for k in want:

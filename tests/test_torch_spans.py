@@ -240,13 +240,13 @@ def _wrappers():
     return list(every()) + [fill_q2_zero_tracers]
 
 
-@pytest.mark.parametrize("index", range(17))
+@pytest.mark.parametrize("index", range(19))
 def test_each_kernel_wrapper_is_its_kernel_span(index):
     """Every wrapper with a `launches` counter runs inside the span
     `kernel.<name>` (fill_q2_zero_tracers counts, and is named, as
     fill_q2_zero), keeps its name and its counter."""
     wrappers = _wrappers()
-    assert len(wrappers) == 17
+    assert len(wrappers) == 19
     w = wrappers[index]
     counted = "fill_q2_zero" if w.__name__ == "fill_q2_zero_tracers" \
         else w.__name__
