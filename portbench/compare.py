@@ -8,7 +8,10 @@ from, runs its own step (its own grid, metrics and context, built from
 the same configuration file; plain PyTorch, TF32 off) and compares the
 program's output field by field.  The start is checked by itself: the
 reference draws the initial state from the seed as the program's init
-does and must find the program's initial state exactly (limit 0).
+does and must find the program's initial state exactly (limit 0).  The
+cell's model file (portbench/models/) builds both sides, draws both
+initial states and names the compared fields; the limits below are every
+model's.
 
 A step's number is its worst field's gap, max |program - reference| over max
 |reference - input|: the error as a share of the largest change the step
@@ -16,16 +19,12 @@ made to that field, where that change is at least CHANGE_FLOOR of the
 field's largest value (a field that a step hardly moves, such as a tracer in
 a flow at rest, is judged against 1e-4 of its size, the repository's own
 relative gate, and not against its rounding).  A program that returns its
-input unchanged reads 1 in every field that the step moves by more.  At the
-cells' size the tracer moves by more from the first step (1.4e-4 of its
-size, 7e-4 by the fifteenth), so a step that skips the tracer transport
-reads 0.7 to 1 in q; at c12 it moves by 2e-7 and would not.  The
-fields are u, v, pt, delp, q and ps, and w and delz in the nonhydrostatic
-step.  The limit (`STEP_GAP_LIMIT`) was set from the program's readings over
-a dozen seeds and more and the control's on the card at the cells' sizes:
-PERF.md gives both readings.  The control is the reference in the program's
-place with TF32 on, the nearest precision below the configuration's float32
-with TF32 off.
+input unchanged reads 1 in every field that the step moves by more.  The
+limit (`STEP_GAP_LIMIT`) was set from the program's readings over a dozen
+seeds and more and the control's on the card at the cells' sizes: PERF.md
+gives both readings.  The control is the reference in the program's place
+with TF32 on, the nearest precision below the configuration's float32 with
+TF32 off.
 """
 from __future__ import annotations
 
@@ -34,27 +33,9 @@ import dataclasses
 
 import torch
 
-from . import drive
-
 STEP_GAP_LIMIT = 0.1
 CHANGE_FLOOR = 1e-4
 START_LIMIT = 0.0
-FIELDS = ("u", "v", "pt", "delp", "q", "ps")
-NH_FIELDS = ("w", "delz")
-
-
-def build_reference(config: dict, device):
-    if config["model"] != "held_suarez":
-        raise ValueError(f"no reference for model {config['model']!r}")
-    from .reference.core.config import DycoreConfig
-    from .reference.models.held_suarez import build_model
-
-    return build_model(DycoreConfig(**config["dycore"]), device)
-
-
-def compared_fields(config: dict) -> tuple:
-    return FIELDS + (() if config["dycore"]["hydrostatic"] else NH_FIELDS)
-
 
 @contextlib.contextmanager
 def plain_f32():
@@ -79,17 +60,9 @@ def as_reference_state(state):
                           for f in dataclasses.fields(DycoreState)})
 
 
-def reference_initial(ref, traffic: dict, seed: int):
-    state = ref.init(perturb=traffic["perturb"], seed=drive.seed_of(seed))
-    return dataclasses.replace(state, q=drive.initial_tracers(
-        state.q.shape, traffic, seed, state.q.device))
-
-
-def start_gap(ref, traffic: dict, seed: int, program_initial,
-              fields) -> float:
+def start_gap(ref_initial, program_initial, fields) -> float:
     """max |program - reference| of the initial state over `fields`."""
-    mine = reference_initial(ref, traffic, seed)
-    return max(float((getattr(mine, f) - getattr(program_initial, f))
+    return max(float((getattr(ref_initial, f) - getattr(program_initial, f))
                      .abs().max()) for f in fields)
 
 
@@ -100,11 +73,12 @@ def compared_steps(first: dict, window: dict) -> list:
         (f"window_step_{k}", window[k]) for k in sorted(window)]
 
 
-def gap_table(ref, traffic: dict, seed: int, steps: list, fields) -> dict:
-    """The readings of one run: the start's gap, and each compared step's
-    gaps by field ({name: {field: gap}}).  `steps` as compared_steps gives
-    them; the first one's input is the program's initial state."""
-    table = {"start_max_abs": start_gap(ref, traffic, seed, steps[0][1][0],
+def gap_table(ref, ref_initial, steps: list, fields) -> dict:
+    """The readings of one run: the start's gap against the reference's
+    own initial state `ref_initial`, and each compared step's gaps by field
+    ({name: {field: gap}}).  `steps` as compared_steps gives them; the
+    first one's input is the program's initial state."""
+    table = {"start_max_abs": start_gap(ref_initial, steps[0][1][0],
                                         fields)}
     for name, (inp, out) in steps:
         table[name] = step_gaps(ref, inp, out, fields)

@@ -17,8 +17,13 @@ tracer), q_split x dsw_tracer_acc per tracer (z_tracer), and the three
 remap calls.  So the count reads the same work whatever later implements
 it.  Under chart corners a y-fill is the x-fill itself and counts once.
 The glue between the kernels is not counted: the step's count is a lower
-bound on its traffic.  portbench/tests/test_counts.py holds these counts
-equal to the program's own recorder at small shapes.
+bound on its traffic.  portbench/tests/test_bench_counts.py holds these
+counts equal to the program's own recorder at small shapes.
+
+A model file's `step_calls` (portbench/models/) gives these calls for its
+dycore; a call of a kernel counted nowhere here may be any object with
+`wrapper`, `bytes` and `ops`, which is all that the readers and
+`bound_s` read.
 """
 from __future__ import annotations
 

@@ -6,17 +6,14 @@ A traffic file (`portbench/traffic/<name>.json`) gives:
 * `in_flight`: the steps the host keeps queued; before it issues step i it
   waits on the end event of step i - in_flight;
 * `warmup_steps`: steps run the same way before the window, in set-up;
-* `perturb`: the potential-temperature noise of the program's own
-  `model.init(perturb, seed)`, in K;
-* `tracer_max`: each tracer is drawn uniform in [0, tracer_max) from the
-  seed on the device, so that the tracer transport moves a field that is
-  not constant;
 * `pick_steps`: the two window steps that the check compares are drawn
   from the seed among the window's first `pick_steps` steps;
-* `trace_steps`: the steps a `--trace 1` run traces after its window.
+* `trace_steps`: the steps a `--trace 1` run traces after its window;
+* what the cell's model file (portbench/models/) reads to draw the
+  initial state, such as `perturb` and `tracer_max`.
 
-The program is entered only through its model: `build_model(config,
-device)`, `model.init` and `model.step`.
+The program is entered only through what the model file builds: an
+object with `device` and `step(state)`.
 """
 from __future__ import annotations
 
@@ -33,31 +30,6 @@ SEED_MOD = 2 ** 63
 def seed_of(seed: int) -> int:
     """The seed as numpy's and torch's generators take it (non-negative)."""
     return int(seed) % SEED_MOD
-
-
-def build_program(config: dict, device):
-    """The program's model of the configuration file `config`."""
-    if config["model"] != "held_suarez":
-        raise ValueError(f"no model of the name {config['model']!r}")
-    from geosongpu_tpu_torch.core.config import DycoreConfig
-    from geosongpu_tpu_torch.models.held_suarez import build_model
-
-    return build_model(DycoreConfig(**config["dycore"]), device)
-
-
-def initial_tracers(shape, traffic: dict, seed: int, device) -> torch.Tensor:
-    """The tracers of the initial state: uniform in [0, tracer_max), from a
-    generator of `device` seeded with `seed`."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed_of(seed))
-    return torch.rand(shape, generator=gen, device=device,
-                      dtype=torch.float32) * traffic["tracer_max"]
-
-
-def initial_state(model, traffic: dict, seed: int):
-    state = model.init(perturb=traffic["perturb"], seed=seed_of(seed))
-    return dataclasses.replace(state, q=initial_tracers(
-        state.q.shape, traffic, seed, state.q.device))
 
 
 def picks(traffic: dict, seed: int) -> list:

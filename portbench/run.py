@@ -7,14 +7,18 @@ Builds the cell's model through the program's own entry, draws the
 initial state from the seed, warms up with the traffic's steps (set-up
 ends there), then steps free-running for `--seconds` seconds with tracing
 off and reads the end-to-end metrics.  With `--trace 1` it then traces the
-traffic's `trace_steps` further steps with torch.profiler and reports the
-per-layer metrics instead.  Last, once the program's state is freed, the
-plain reference (portbench/reference/) checks the initial state, the
-first step from it and two window steps drawn from the seed
-(portbench/compare.py).  The last line on standard output is one JSON
-object: correct, attempted, failed, metrics, device (and breakdown with
-`--trace 1`), and last the numbers compared with their limits, which are
-also the last lines on standard error.
+traffic's `trace_steps` further steps with torch.profiler, with the
+program's spans recorded around them and around the build
+(portbench/spans.py), and reports the per-layer metrics instead, with the
+spans' breakdown (`by_span`, `idle_by_span`, `setup_by_span`,
+`span_launch_match`) beside the trace's.  Last, once the program's state
+is freed, the plain reference (portbench/reference/) checks the initial
+state, the first step from it and two window steps drawn from the seed
+(portbench/compare.py).  The cell's model file (portbench/models/) builds
+both sides.  The last line on standard output is one JSON object:
+correct, attempted, failed, metrics, device (and breakdown with `--trace
+1`), and last the numbers compared with their limits, which are also the
+last lines on standard error.
 
 Exits non-zero, printing no result, without a CUDA card for the cell, or
 if jax, jaxlib, flax or the JAX package (geosongpu_tpu, compared by the
@@ -40,10 +44,11 @@ os.environ.setdefault("USE_FLAX", "0")
 os.environ.setdefault("USE_JAX", "0")
 
 import argparse  # noqa: E402
+import contextlib  # noqa: E402
 import gc  # noqa: E402
 import json  # noqa: E402
 import tempfile  # noqa: E402
-from dataclasses import dataclass  # noqa: E402
+from dataclasses import dataclass, field  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "geosongpu_tpu")
 
@@ -79,34 +84,45 @@ class TraceRecord:
     peaks: dict
     wall_s_per_step: float   # of the untraced window
     issue_s: list            # the untraced window's host time in each step
+    # the program's spans of the traced steps on the trace's clock, and the
+    # trace's runtime calls (portbench/spans.py)
+    spans: list = field(default_factory=list)
+    runtime_calls: list = field(default_factory=list)
 
 
 def trace_steps(model, state, traffic, device):
     """Trace the traffic's trace_steps steps from `state` with the
-    profiler's device activity alone: (events, the final state).  Host
-    operators are not recorded: on the card-bound c192 step their cost
-    (~10 us a launch) made the host the bottleneck and the traced window
-    21% idle against 3% without them.  A first profile of three steps, not
-    read, starts the device tracing outside the traced steps (the first
-    session in a process read up to 1.5 points more idle)."""
+    profiler's device activity alone, the program's spans recorded around
+    them: (device events, spans on the trace's clock, runtime calls, the
+    final state).  Host operators are not recorded: on the card-bound c192
+    step their cost (~10 us a launch) made the host the bottleneck and the
+    traced window 21% idle against 3% without them.  A first profile of
+    three steps, not read, starts the device tracing outside the traced
+    steps (the first session in a process read up to 1.5 points more
+    idle).  On a CPU device (the tests) the profiler records host activity,
+    in which no device event is found."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from portbench import devtrace, drive
+    from portbench import devtrace, drive, spans
 
-    acts = [ProfilerActivity.CUDA]
+    cuda = torch.device(device).type == "cuda"
+    acts = [ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU]
     with profile(activities=acts):
         state = drive.free_run(model, state, traffic, steps=3).state
     with tempfile.TemporaryDirectory(prefix="portbench_trace_") as tmp:
         with profile(activities=acts) as prof:
-            win = drive.free_run(model, state, traffic,
-                                 steps=traffic["trace_steps"])
+            with spans.recording() as records:
+                win = drive.free_run(model, state, traffic,
+                                     steps=traffic["trace_steps"])
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         del prof
         events = devtrace.read_trace(path)
-    torch.cuda.synchronize(device)
-    return events, win.state
+        base_ns, calls = spans.read_calls(path, events)
+    if cuda:
+        torch.cuda.synchronize(device)
+    return events, spans.on_trace_clock(records, base_ns), calls, win.state
 
 
 def finite(state, fields) -> bool:
@@ -117,21 +133,23 @@ def finite(state, fields) -> bool:
 
 def run(cell, seed: int, seconds: float, trace: bool, device: str) -> dict:
     """One run of `cell` on `device`: the result line's object.  On a CPU
-    device (the tests, at small sizes) the energy and the trace are not
-    read."""
+    device (the tests, at small sizes) the energy is not read and the
+    trace holds no device event."""
     import torch
 
-    from portbench import compare, counts, devtrace, drive, spec
+    from portbench import compare, counts, devtrace, drive, spans, spec
 
     cuda = torch.device(device).type == "cuda"
-    cfg, traffic = cell.config, cell.traffic
-    fields = compare.compared_fields(cfg)
+    cfg, traffic, model_file = cell.config, cell.traffic, cell.model
+    fields = model_file.compared_fields(cfg)
     dt = float(cfg["dycore"]["dt"])
 
     parts = {"imports": time.perf_counter() - T0}
-    model = drive.build_program(cfg, device)
+    with (spans.recording() if trace else contextlib.nullcontext([])
+          ) as setup_records:
+        model = model_file.build_program(cfg, device)
     parts["build"] = time.perf_counter() - T0 - sum(parts.values())
-    state = drive.initial_state(model, traffic, seed)
+    state = model_file.initial_state(model, traffic, seed)
     parts["initial_state"] = time.perf_counter() - T0 - sum(parts.values())
     # the peak before the check holds any state
     setup_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
@@ -151,9 +169,9 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str) -> dict:
                          hold=picks)
     energy_j = card.energy_j() - e0 if card else None
     final_state = win.state
-    events = None
-    if trace and cuda:
-        events, final_state = trace_steps(model, win.state, traffic, device)
+    if trace:
+        events, span_list, calls, final_state = trace_steps(
+            model, win.state, traffic, device)
     found = forbidden_modules()
     ok_final = finite(final_state, fields)
     # The program's own peak: the states the check holds (cloned at the
@@ -178,22 +196,24 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str) -> dict:
     if cuda:
         torch.cuda.empty_cache()
 
-    ref = compare.build_reference(cfg, device)
-    checks = compare.checks(compare.gap_table(ref, traffic, seed, steps,
-                                              fields), ok_final)
+    ref = model_file.build_reference(cfg, device)
+    checks = compare.checks(compare.gap_table(
+        ref, model_file.reference_initial(ref, traffic, seed), steps, fields),
+        ok_final)
     del ref, steps
     failed = compare.failed(checks)
 
     result = {"correct": failed == 0 and not found,
               "attempted": result_window.steps, "failed": failed}
-    if trace and cuda:
+    if trace:
         b = devtrace.busy(events)
         rec = TraceRecord(events=events, steps=traffic["trace_steps"],
                           busy_s=b["busy_s"], window_s=b["span_s"],
-                          calls=counts.step_calls(cfg["dycore"]),
+                          calls=model_file.step_calls(cfg),
                           peaks=counts.PEAKS[torch.cuda.get_device_name(
-                              device)],
-                          wall_s_per_step=wall_s_per_step, issue_s=issue_s)
+                              device)] if cuda else None,
+                          wall_s_per_step=wall_s_per_step, issue_s=issue_s,
+                          spans=span_list, runtime_calls=calls)
         result["metrics"] = spec.read_metrics(cell.per_layer, "metrics", rec,
                                               cell.root)
     else:
@@ -208,11 +228,13 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str) -> dict:
     if card:
         result["device"]["power_limit_w"] = card.power_limit_w
         card.close()
-    if trace and cuda:
+    if trace:
         result["device"]["busy_s"] = b["busy_s"]
         result["device"]["window_s"] = b["span_s"]
         result["breakdown"] = {"device_ops": devtrace.top_ops(events),
-                               "idle_gaps": devtrace.idle_gaps(events)}
+                               "idle_gaps": devtrace.idle_gaps(events),
+                               **spans.breakdown(spans.analyse(rec),
+                                                 setup_records)}
     result["forbidden_modules"] = found
     result["checks"] = checks
     return result

@@ -22,10 +22,12 @@ and splits the host time inside `step` spans three ways: inside a
 `kernel.*` span (the wrappers), inside a `halo.*` or `exchange.*` span
 (the fills and the exchange), and the rest (the glue's dispatch).
 
-portbench/span_trace.py traces a cell with the spans recorded and prints
-what this module reads.  `portbench/run.py` does not record spans: its
-`--trace 1` result carries none of these readings.  A program without the
-recorder (an older checkout of it) records nothing, and nothing is read.
+`portbench/run.py --trace 1` records the spans around the build and the
+traced steps and keeps the trace's runtime calls in its TraceRecord; the
+five span metrics (LAYER_METRICS, a reader file each under
+portbench/metrics/) and its `breakdown` read them here.  A program without
+the recorder (an older checkout of it) records nothing, and nothing is
+read.
 """
 from __future__ import annotations
 

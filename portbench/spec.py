@@ -8,6 +8,11 @@ adding a file and an entry:
 * a configuration: the `file` of its entry (`portbench/configs/<name>.json`);
 * a traffic mix: `portbench/traffic/<traffic>.json`, parameters that the
   one generator of portbench/drive.py reads;
+* a model: `portbench/models/<model>.py`, named by the configuration's
+  `model` key, with `build_program(cfg, device)`, `initial_state(model,
+  traffic, seed)`, `build_reference(cfg, device)`, `reference_initial(ref,
+  traffic, seed)`, `compared_fields(cfg)` and `step_calls(cfg)` (see
+  portbench/models/held_suarez.py);
 * an end-to-end metric: `portbench/end_to_end/<name>.py`, a per-layer
   metric: `portbench/metrics/<name>.py`, each with `read(record)`, which
   returns the metric's value or None where the run has nothing to read.
@@ -29,6 +34,7 @@ class Cell:
     chips: int
     config: dict        # the configuration file: its "dycore" fields etc.
     traffic: dict
+    model: object       # the module of portbench/models/<config's model>.py
     end_to_end: list    # BENCHMARK.json entries this cell reports
     per_layer: list
     root: Path = ROOT   # the checkout it was found in
@@ -60,13 +66,31 @@ def cell(name: str, root: Path = ROOT) -> Cell:
                        f"{sorted(cells)})")
     w = cells[name]
     configs = {c["name"]: c for c in bench["configs"]}
+    config = _json(root / configs[w["config"]]["file"])
     return Cell(
-        name=name, chips=int(w["chips"]),
-        config=_json(root / configs[w["config"]]["file"]),
+        name=name, chips=int(w["chips"]), config=config,
         traffic=_json(root / "portbench" / "traffic" / f"{w['traffic']}.json"),
+        model=model(config["model"], root),
         end_to_end=[m for m in bench["end_to_end"] if _reports(m, name)],
         per_layer=[m for m in bench["per_layer"] if _reports(m, name)],
         root=root)
+
+
+def _load(kind: str, name: str, path: Path):
+    spec = importlib.util.spec_from_file_location(
+        f"portbench_{kind}_{name.replace('.', '_').replace('-', '_')}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def model(name: str, root: Path = ROOT):
+    """The module of model `name` (portbench/models/<name>.py)."""
+    path = root / "portbench" / "models" / f"{name}.py"
+    if not path.is_file():
+        known = sorted(p.stem for p in path.parent.glob("*.py"))
+        raise KeyError(f"no model {name!r} in {path.parent} (have {known})")
+    return _load("models", name, path)
 
 
 def reader(kind: str, name: str, root: Path = ROOT):
@@ -74,11 +98,7 @@ def reader(kind: str, name: str, root: Path = ROOT):
     path = root / "portbench" / kind / f"{name}.py"
     if not path.is_file():
         raise FileNotFoundError(f"no reader for metric {name!r} at {path}")
-    spec = importlib.util.spec_from_file_location(
-        f"portbench_{kind}_{name.replace('.', '_').replace('-', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return _load(kind, name, path)
 
 
 def read_metrics(entries: list, kind: str, record, root: Path = ROOT) -> dict:

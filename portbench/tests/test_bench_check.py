@@ -20,13 +20,12 @@ def test_program_passes_and_bf16_state_fails(name):
     """On the CPU, where TF32 does not exist, the reference with its state
     stored in bfloat16 stands in for the control."""
     cell = small_cell(name)
-    fields = compare.compared_fields(cell.config)
-    model = drive.build_program(cell.config, "cpu")
-    ref = compare.build_reference(cell.config, "cpu")
+    fields = cell.model.compared_fields(cell.config)
+    model = cell.model.build_program(cell.config, "cpu")
+    ref = cell.model.build_reference(cell.config, "cpu")
     for seed in (1, 2 ** 31 + 3, 2 ** 32 + 5):
-        s = drive.free_run(model, drive.initial_state(model, cell.traffic,
-                                                      seed),
-                           cell.traffic, steps=2).state
+        s = drive.free_run(model, cell.model.initial_state(
+            model, cell.traffic, seed), cell.traffic, steps=2).state
         out = model.step(s)
         mine = compare.step_gaps(ref, s, out, fields)
         low = compare.control_gaps(ref, s, fields, "bf16")
@@ -44,13 +43,12 @@ def test_tf32_control_fails_on_the_card(card, name):
     from portbench import spec
 
     cell = spec.cell(name)
-    fields = compare.compared_fields(cell.config)
-    model = drive.build_program(cell.config, card)
-    ref = compare.build_reference(cell.config, card)
+    fields = cell.model.compared_fields(cell.config)
+    model = cell.model.build_program(cell.config, card)
+    ref = cell.model.build_reference(cell.config, card)
     for seed in (1, 2 ** 31 + 3, 2 ** 32 + 5):
-        s = drive.free_run(model, drive.initial_state(model, cell.traffic,
-                                                      seed),
-                           cell.traffic, steps=3).state
+        s = drive.free_run(model, cell.model.initial_state(
+            model, cell.traffic, seed), cell.traffic, steps=3).state
         out = model.step(s)
         mine = compare.step_gaps(ref, s, out, fields)
         low = compare.control_gaps(ref, s, fields, "tf32")

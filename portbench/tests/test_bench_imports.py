@@ -36,7 +36,7 @@ def imported(path: pathlib.Path) -> set:
 def test_the_scan_reads_every_source():
     assert len(SOURCES) > 30
     assert "geosongpu_tpu_torch.models.held_suarez" in imported(
-        BENCH / "drive.py")
+        BENCH / "models" / "held_suarez.py")
     assert "portbench.reference.core.grid" in imported(
         BENCH / "reference" / "models" / "held_suarez.py")
 

@@ -5,7 +5,7 @@ import dataclasses
 import pytest
 import torch
 
-from portbench import compare, drive
+from portbench import compare
 from pbhelpers import small_cell
 
 CELLS = ("hs_c192_l72.free", "nh_c192_l72.free")
@@ -14,7 +14,7 @@ CELLS = ("hs_c192_l72.free", "nh_c192_l72.free")
 def _program(cell, fused):
     cfg = dict(cell.config)
     cfg["dycore"] = dict(cfg["dycore"], pallas_dycore=fused)
-    return drive.build_program(cfg, "cpu")
+    return cell.model.build_program(cfg, "cpu")
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -24,9 +24,9 @@ def test_reference_is_the_ports_eager_step(name):
     CPU."""
     cell = small_cell(name)
     model = _program(cell, fused=False)
-    ref = compare.build_reference(cell.config, "cpu")
-    s = drive.initial_state(model, cell.traffic, 5)
-    r = compare.reference_initial(ref, cell.traffic, 5)
+    ref = cell.model.build_reference(cell.config, "cpu")
+    s = cell.model.initial_state(model, cell.traffic, 5)
+    r = cell.model.reference_initial(ref, cell.traffic, 5)
     for _ in range(3):
         for f in dataclasses.fields(s):
             assert torch.equal(getattr(s, f.name), getattr(r, f.name)), f.name
@@ -38,10 +38,10 @@ def test_fused_step_within_the_limit(name):
     """The fused step (the kernels' plain versions on the CPU) against the
     reference stepped from the same state, by the check's own number."""
     cell = small_cell(name)
-    fields = compare.compared_fields(cell.config)
+    fields = cell.model.compared_fields(cell.config)
     model = _program(cell, fused=True)
-    ref = compare.build_reference(cell.config, "cpu")
-    s = drive.initial_state(model, cell.traffic, 9)
+    ref = cell.model.build_reference(cell.config, "cpu")
+    s = cell.model.initial_state(model, cell.traffic, 9)
     for _ in range(3):
         out = model.step(s)
         gaps = compare.step_gaps(ref, s, out, fields)

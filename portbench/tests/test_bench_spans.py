@@ -4,13 +4,15 @@ its runtime call, the idle gaps split over the spans the host was in, self
 times, the wrapper + halo + glue partition of the `step` spans, the
 launch match, and every span metric reading nothing when the spans do not
 line up with the trace's clock or when the program recorded none; and
-portbench/span_trace.py run at a small size on the CPU."""
+the traced branch of portbench/run.py at a small size on the CPU, which
+hands the readers the program's spans."""
 import json
 import sys
 
 import pytest
 
-from portbench import devtrace, span_trace, spans, spec
+from portbench import devtrace, spans, spec
+from pbhelpers import load_run, small_cell
 
 BASE = 1_790_000_000_000_000_000   # the trace's baseTimeNanoseconds
 STEPS = 2
@@ -72,8 +74,8 @@ def _trace(tmp_path):
 
 
 def _record(tmp_path, shift_us=0.0, spans_given=True):
-    """A SpanTraceRecord of the synthetic trace, its spans read as the
-    program records them (ns since the epoch) and shifted by shift_us."""
+    """A TraceRecord of the synthetic trace, its spans read as the program
+    records them (ns since the epoch) and shifted by shift_us."""
     path = _trace(tmp_path)
     events = devtrace.read_trace(path)
     base, calls = spans.read_calls(path, events)
@@ -82,16 +84,14 @@ def _record(tmp_path, shift_us=0.0, spans_given=True):
                 BASE + int((e + shift_us) * 1000), p, k)
                for n, s, e, p, k in SPANS] if spans_given else []
     b = devtrace.busy(events)
-    return span_trace.SpanTraceRecord(
+    return load_run().TraceRecord(
         events=events, steps=STEPS, busy_s=b["busy_s"], window_s=b["span_s"],
         calls=[], peaks=None, wall_s_per_step=1e-4, issue_s=[1e-4],
         spans=spans.on_trace_clock(records, base), runtime_calls=calls)
 
 
 def _read(name, rec):
-    """A span metric, or an accepted reader's metric, of the record."""
-    if name in spans.LAYER_METRICS:
-        return spans.layer_metrics(spans.analyse(rec)).get(name)
+    """The metric `name` of the record, by its reader file."""
     return spec.reader("metrics", name).read(rec)
 
 
@@ -198,18 +198,47 @@ def test_breakdown_keys(tmp_path):
     json.dumps(b)
 
 
-def test_span_trace_on_the_cpu():
-    from pbhelpers import small_cell
-
+def test_the_traced_run_hands_the_readers_the_programs_spans(monkeypatch):
+    """run.py's traced branch at c8 on the CPU: the per-layer readers get
+    the program's spans of the traced steps, and the result's breakdown
+    carries the spans' readings beside the trace's.  The CPU's trace holds
+    no device event and no runtime call, so no launch is matched and the
+    span metrics read nothing; an untraced run records no span."""
     cell = small_cell("hs_c192_l72.free", npx=8, npz=6)
     cell.traffic.update(warmup_steps=1, trace_steps=2)
-    out = span_trace.span_trace(cell, 2 ** 31 + 11, 0.05, True, "cpu")
+    seen, opened = [], []
+    read_metrics, recording = spec.read_metrics, spans.recording
+
+    def spy(entries, kind, rec, root):
+        seen.append(rec)
+        return read_metrics(entries, kind, rec, root)
+
+    def counted():
+        opened.append(1)
+        return recording()
+
+    monkeypatch.setattr(spec, "read_metrics", spy)
+    monkeypatch.setattr(spans, "recording", counted)
+    run = load_run()
+    out = run.run(cell, 2 ** 31 + 11, 0.05, True, "cpu")
+    assert out["correct"], out["checks"]
+    (rec,) = seen
+    assert len(opened) == 2   # around the build and the traced steps
+    assert rec.runtime_calls == [] and rec.events == []
+    names = {s.name for s in rec.spans}
+    assert {"step", "substep", "remap", "halo.fill",
+            "kernel.dsw_csw1"} <= names
+    assert not any(n.startswith("setup.") for n in names)
+    assert sorted({s.step for s in rec.spans}) == [0, 1]
+    a = spans.analyse(rec)
     b = out["breakdown"]
-    assert {"step", "substep", "remap", "halo.fill"} <= set(b["by_span"])
-    assert b["by_span"]["step"]["host_ms"] == out["step_span_ms"] > 0
-    assert b["span_launch_match"] is None and out["span_metrics"] == {}
+    assert b["by_span"] == a["by_span"] and b["by_span"]["step"]["host_ms"] > 0
+    assert b["span_launch_match"] is None
     assert {"setup.grid", "setup.vertical", "setup.context"} <= set(
         b["setup_by_span"])
+    assert {"device_ops", "idle_gaps"} <= set(b)
+    assert not set(spans.LAYER_METRICS) & set(out["metrics"])
     json.dumps(out)
-    off = span_trace.span_trace(cell, 7, 0.05, False, "cpu")
-    assert off["breakdown"] == {} and "step_span_ms" not in off
+    off = run.run(cell, 7, 0.05, False, "cpu")
+    assert off["correct"] and "breakdown" not in off
+    assert len(opened) == 2

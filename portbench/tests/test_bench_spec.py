@@ -1,6 +1,7 @@
-"""A configuration, a traffic mix, a cell and metrics are added by new
-files and new entries alone, and found by name; a CPU run of the new cell
-at a small size reads the new metric."""
+"""A model, a configuration, a traffic mix, a cell and metrics are added
+by new files and new entries alone, and found by name; a CPU run of the new
+cell at a small size is correct and reads the new metric."""
+import hashlib
 import json
 import shutil
 
@@ -18,10 +19,26 @@ def copy(tmp_path):
     return tmp_path
 
 
+# a model file of its own: the Held-Suarez model under another name
+TEST_MODEL = '''"""A test model: the Held-Suarez model under another name."""
+from portbench.models.held_suarez import (  # noqa: F401
+    build_program, build_reference, compared_fields, initial_state,
+    reference_initial, step_calls)
+'''
+
+
+def _digests(root):
+    return {p.relative_to(root): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in root.rglob("*") if p.is_file()}
+
+
 def _add(copy):
+    before = _digests(copy)
+    (copy / "portbench/models/hs_test_model.py").write_text(TEST_MODEL)
     cfg = json.loads((copy / "portbench/configs/held_suarez_c192.json")
                      .read_text())
     cfg["name"] = "held_suarez_c8"
+    cfg["model"] = "hs_test_model"
     cfg["dycore"].update(npx=8, npz=6)
     (copy / "portbench/configs/held_suarez_c8.json").write_text(
         json.dumps(cfg))
@@ -50,12 +67,17 @@ def _add(copy):
         "source": "program_counter", "layer": "a test",
         "moves": "steps_per_s", "workloads": ["hs_c8.lockstep"]})
     (copy / "BENCHMARK.json").write_text(json.dumps(bench))
+    after = _digests(copy)
+    # no file that was there is touched, but the entries of BENCHMARK.json
+    assert {p for p in before if after[p] != before[p]} == {
+        copy.joinpath("BENCHMARK.json").relative_to(copy)}
 
 
 def test_new_files_are_found_by_name(copy):
     _add(copy)
     c = spec.cell("hs_c8.lockstep", root=copy)
     assert c.config["dycore"]["npx"] == 8
+    assert c.model.__file__ == str(copy / "portbench/models/hs_test_model.py")
     assert c.traffic["in_flight"] == 1
     assert [m["name"] for m in c.end_to_end][-1] == "steps_per_s"
     assert "a.new-metric" in [m["name"] for m in c.per_layer]
@@ -81,3 +103,21 @@ def test_unknown_names_are_refused(copy):
         spec.cell("no_such.cell", root=copy)
     with pytest.raises(FileNotFoundError):
         spec.reader("metrics", "no_such_metric", copy)
+    with pytest.raises(KeyError, match="have.*held_suarez"):
+        spec.model("no_such_model", copy)
+    _add(copy)
+    path = copy / "portbench/configs/held_suarez_c8.json"
+    path.write_text(path.read_text().replace('"hs_test_model"',
+                                             '"no_such_model"'))
+    with pytest.raises(KeyError, match="no_such_model.*have.*hs_test_model"):
+        spec.cell("hs_c8.lockstep", root=copy)
+
+
+def test_drive_and_compare_name_no_model():
+    """The generator and the check reach a model only through its file."""
+    names = [p.stem for p in (spec.HERE / "models").glob("*.py")]
+    assert "held_suarez" in names
+    for f in ("drive.py", "compare.py"):
+        text = (spec.HERE / f).read_text().lower()
+        for n in names + ["suarez"]:
+            assert n not in text, (f, n)
