@@ -14,6 +14,10 @@ physics chain of a step is
 
 Tracer layout: q[..., 0] = qv, q[..., 1] = ql, q[..., 2] = qr.
 
+Spans: `physics` around the chain, and inside it `surface_fluxes` around
+the bulk fluxes and `relaxation` around the tracer re-stack and the
+Held-Suarez relaxation, beside the kernel wrappers' `kernel.*` spans.
+
 With `pallas_microphysics=True` the fill of the three tracers (one call of
 fill_q2_zero_tracers on the state's tracer array), the shallow convection
 and the microphysics go through the kernel wrappers of
@@ -37,7 +41,7 @@ from ..ops.vertical import interfaces_from_delp
 from ..physics import standalone as primary
 from ..physics.held_suarez import held_suarez_forcing
 from ..physics.thermo import CP_AIR, GRAV, RDGAS, qsat
-from ..spans import spanned
+from ..spans import span, spanned
 from . import held_suarez
 
 CD = 1.2e-3   # bulk transfer coefficient of the surface fluxes
@@ -101,15 +105,17 @@ class AquaplanetModel(held_suarez.HeldSuarezModel):
             shallow = primary.cup_gf_sh
 
         # ---- surface fluxes (bulk, lowest layer) ------------------------
-        wind = torch.sqrt(state.ua[..., -1] ** 2
-                          + state.va[..., -1] ** 2) + 1.0
-        rho_s = p_mid[..., -1] / (RDGAS * t[..., -1])
-        dp_bot = delp[..., -1]
-        qs_sst = qsat(sst, pe[..., -1])
-        evap = CD * wind * rho_s * torch.clamp_min(qs_sst - qv[..., -1], 0.0)
-        shf = CD * wind * rho_s * CP_AIR * (sst - t[..., -1])
-        qv[..., -1] += evap * GRAV * dt / dp_bot
-        t[..., -1] += shf * GRAV * dt / (CP_AIR * dp_bot)
+        with span("surface_fluxes"):
+            wind = torch.sqrt(state.ua[..., -1] ** 2
+                              + state.va[..., -1] ** 2) + 1.0
+            rho_s = p_mid[..., -1] / (RDGAS * t[..., -1])
+            dp_bot = delp[..., -1]
+            qs_sst = qsat(sst, pe[..., -1])
+            evap = CD * wind * rho_s * torch.clamp_min(qs_sst - qv[..., -1],
+                                                       0.0)
+            shf = CD * wind * rho_s * CP_AIR * (sst - t[..., -1])
+            qv[..., -1] += evap * GRAV * dt / dp_bot
+            t[..., -1] += shf * GRAV * dt / (CP_AIR * dp_bot)
 
         # ---- shallow convection -----------------------------------------
         t, qv = shallow(t, qv, p_mid, delp, dt)
@@ -128,11 +134,12 @@ class AquaplanetModel(held_suarez.HeldSuarezModel):
         t, qv, ql, qr, _qi, _precip = microphysics(*args)
 
         # ---- radiative relaxation (Held-Suarez style, weak) -------------
-        q = torch.stack([qv, ql, qr] + [state.q[..., n] for n in
-                                        range(3, state.q.shape[-1])], dim=-1)
-        u, v, pt = held_suarez_forcing(state.u, state.v, t / pkz, state.delp,
-                                       self.lats if lats is None else lats,
-                                       cfg.ptop, cfg.dt)
+        with span("relaxation"):
+            q = torch.stack([qv, ql, qr] + [state.q[..., n] for n in range(
+                3, state.q.shape[-1])], dim=-1)
+            u, v, pt = held_suarez_forcing(
+                state.u, state.v, t / pkz, state.delp,
+                self.lats if lats is None else lats, cfg.ptop, cfg.dt)
         return dataclasses.replace(state, u=u, v=v, pt=pt, q=q)
 
     # the step is the Held-Suarez model's, with the moist chain as forcing

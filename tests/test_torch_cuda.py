@@ -660,6 +660,39 @@ def test_kernel_spans_count_the_launches(cuda, form):
         assert torch.equal(getattr(got, f.name), getattr(ref, f.name)), f.name
 
 
+def test_aquaplanet_column_kernels_once_a_step(cuda):
+    """Two aquaplanet steps recorded on the card: each of the chain's
+    column kernels (fill_q2_zero of the three tracers, cup_gf_sh,
+    gfdl_microphysics) launches once a step, its `launches` counter equal
+    to its `kernel.*` spans, and each `physics` span holds one
+    `surface_fluxes` and one `relaxation` span."""
+    import collections
+
+    from geosongpu_tpu_torch import spans
+    from geosongpu_tpu_torch.models import aquaplanet
+    from geosongpu_tpu_torch.ops.kernels import launch_counts
+
+    cfg = dataclasses.replace(SMALL, ntracers=3, pallas_dycore=True,
+                              pallas_microphysics=True)
+    model = aquaplanet.build_model(cfg, cuda)
+    state = model.step(model.init(perturb=3.0))
+    before = launch_counts()
+    with spans.recording() as records:
+        model.run(state, 2)
+    torch.cuda.synchronize()
+    column = ("fill_q2_zero", "cup_gf_sh", "gfdl_microphysics")
+    counted = collections.Counter(r.name for r in records)
+    for k in column:
+        assert launch_counts()[k] - before[k] == 2 == counted["kernel." + k]
+    assert counted["physics"] == counted["surface_fluxes"] \
+        == counted["relaxation"] == 2
+    inside = {"surface_fluxes", "relaxation"} | {"kernel." + k
+                                                   for k in column}
+    for r in records:
+        if r.name in inside:
+            assert records[r.parent].name == "physics", r.name
+
+
 # chart corners (csrc/chart_corners.cu): c48-L72, c192-L72 and the gated
 # slots of the c48 (2,4) stacked step (48 slots of 24 x 12 cells)
 CHART_CASES = ["c48", "c192", "c48 (2,4)"]
