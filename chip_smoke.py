@@ -30,7 +30,9 @@ made as tests/test_torch_cuda.py::_synthetic_args makes them), each equal
 to its plain version in every element (NaN only where plain has NaN), with
 its bound, the device time's share of it and the launch configuration the
 profiler records (grid, block, registers, shared memory, blocks an SM);
-the full `--stages` takes the c192 view too.
+the full `--stages` takes the c192 view too.  `--stages agrid` runs
+agrid_winds alone, on the fused c192-L72 preset's inputs at c192 and at
+C180 (AGRID_SIZES), as phase 4 times it.
 
     python3 chip_smoke.py --harness
 
@@ -59,7 +61,11 @@ Without arguments, the phases:
    c192 preset launches (dsw_wind in its blend form); dsw_csw2 and
    dsw_wind on the JW06 preset's inputs (perturbed init + 2 steps, its
    balancing terrain in the metrics), where each must equal its plain
-   version (0.0).
+   version (0.0).  agrid_winds (the A-grid winds, glue of the reference)
+   equal to its plain version bit for bit at c48-L72, on the JW06 inputs
+   (26 levels: its one-float form) and on the inputs of the c192-L72
+   fused step at c192 and C180 (AGRID_SIZES), there with the device time
+   of its launch and of its plain version's launches and its bound;
    dsw_csw1, dsw_transport, dsw_tracer and dsw_tracer_acc within 1e-5 of
    max|plain|; dsw_csw2, dsw_wind and dsw_nh_pert within max(1e-4
    max|plain|, 2e-3), for the column-sum order; and the two chart-corner
@@ -201,14 +207,15 @@ Without arguments, the phases:
 Phases 3 to 5 print the median time of 20 calls (10 at c192), kernel and
 plain.  The second-to-last line is the kernels JSON object, the last line
 {"ok": true, "device": {...}}; the c192-L72 rows of the other four substep
-kernels and of remap_banded go on a line of their own before those,
-{"kernels_c192": [...]}, with the same keys.  `launches` in the kernels
-object is the count of the fused Held-Suarez path (c192 and
-nonhydrostatic for those forms), of the fused aquaplanet path for
-gfdl_microphysics, fill_q2_zero and cup_gf_sh, of the gate path for
-the four kernels only the gate runs, of the JW06 path for the rows
-`dsw_csw2 jw` and `dsw_wind jw` (the terrain form), and of the c192 path
-for the chart-corner rows.
+kernels and of remap_banded, and agrid_winds' c192 and C180 rows, go on a
+line of their own before those, {"kernels_c192": [...]}, with the same
+keys.  `launches` in the kernels object is the count of the fused
+Held-Suarez path (c192 and nonhydrostatic for those forms), of the fused
+aquaplanet path for gfdl_microphysics, fill_q2_zero and cup_gf_sh, of the
+gate path for the four kernels only the gate runs, of the JW06 path for
+the rows `dsw_csw2 jw`, `dsw_wind jw` (the terrain form) and `agrid_winds
+jw`, and of the c192 path for the chart-corner rows and agrid_winds'
+C180 row (8 a step, as in the aquaplanet cell).
 
 Each kernel's bound in that object is the larger of two times computed
 here from the call's shapes: every input read and every output written
@@ -277,6 +284,8 @@ KERNELS = {
                     True),
     "nh_vertical_solve": ("nh_vertical_solve.cu",
                           "geosongpu_tpu/dycore/nh_solver.py:57", False),
+    "agrid_winds": ("dsw_agrid.cu", "geosongpu_tpu/dycore/sw_pallas.py:475",
+                    False),
     "chart_scalar": ("chart_corners.cu",
                      "geosongpu_tpu/core/chart_corners.py:467", False),
     "chart_agrid": ("chart_corners.cu",
@@ -302,6 +311,12 @@ COLUMN_PHYSICS = list(KERNELS)[list(KERNELS).index("gfdl_microphysics"):]
 # the kernels that must equal their plain versions in every element, NaN
 # only where the plain version has NaN (the substep's padded columns)
 NAN_AS_PLAIN = ("nh_vertical_solve",)
+# the kernels that must equal their plain versions bit for bit, signed
+# zeros included
+BITWISE = ("agrid_winds",)
+# the kernels of the reference's XLA glue, which the roofline's recorder
+# leaves to the glue (no stage of its STAGE_OWNER)
+GLUE_KERNELS = ("chart_scalar", "chart_agrid", "agrid_winds")
 # the column kernels that must equal their plain versions in every element
 # (the other three keep REL_GATE)
 EXACT = ("gfdl_microphysics", "fill_q2_zero", "cup_gf_sh", "aer_activation")
@@ -315,7 +330,7 @@ PORT_STAGES = ("::csw1(", "::csw2_winds(", "::fvtp2d_tile<",
                "::transport_update(", "::nh_transport_update(",
                "::tracer_update(", "::tracer_sub_update(", "::wind_update<",
                "::blend_divergence(", "::hydro_columns(", "::nh_columns(",
-               "::nh_vertical_columns(",
+               "::nh_vertical_columns(", "::agrid_winds<",
                "::remap_banded_kernel<", "::gfdl_microphysics_columns(",
                "::fill_q2_zero_columns(", "::aer_activation_points",
                "::moist_rad_coup_points(", "::cup_gf_sh_points(",
@@ -358,16 +373,17 @@ PATHS = {
         "remap_banded": 3, "chart_scalar": 34, "chart_agrid": 6}),
     "held_suarez_c48_l72_fused": ("fused", 10, {
         "dsw_csw1": 6, "dsw_csw2": 6, "dsw_transport": 6, "dsw_wind": 6,
-        "dsw_tracer_acc": 2, "remap_banded": 3, "chart_scalar": 34,
-        "chart_agrid": 6}),
+        "dsw_tracer_acc": 2, "agrid_winds": 6, "remap_banded": 3,
+        "chart_scalar": 34, "chart_agrid": 6}),
     "held_suarez_c192_l72_fused": ("c192", 5, {       # n_split 8
         "dsw_csw1": 8, "dsw_csw2": 8, "dsw_transport": 8, "dsw_wind": 8,
-        "dsw_tracer_acc": 2, "remap_banded": 3, "chart_scalar": 44,
-        "chart_agrid": 8}),
+        "dsw_tracer_acc": 2, "agrid_winds": 8, "remap_banded": 3,
+        "chart_scalar": 44, "chart_agrid": 8}),
     "held_suarez_c48_l72_nh_fused": ("nh", 5, {
         "dsw_csw1": 6, "dsw_csw2": 6, "dsw_transport": 6, "dsw_wind": 6,
         "dsw_tracer": 6, "dsw_nh_pert": 6, "nh_vertical_solve": 6,
-        "remap_banded": 3, "chart_scalar": 54, "chart_agrid": 6}),
+        "agrid_winds": 6, "remap_banded": 3, "chart_scalar": 54,
+        "chart_agrid": 6}),
     # c48-L32, three tracers: dsw_tracer_acc 3 tracers x q_split 2; the
     # remap takes pt and the three tracers in one call, then u, then v;
     # the physics fills qv, ql and qr in one launch, mixes by cup_gf_sh and
@@ -376,18 +392,23 @@ PATHS = {
         "remap_banded": 3, "chart_scalar": 38, "chart_agrid": 6}),
     "aquaplanet_c48_l32_fused": ("aqua", 10, {
         "dsw_csw1": 6, "dsw_csw2": 6, "dsw_transport": 6, "dsw_wind": 6,
-        "dsw_tracer_acc": 6, "remap_banded": 3, "fill_q2_zero": 1,
-        "cup_gf_sh": 1, "gfdl_microphysics": 1, "chart_scalar": 38,
-        "chart_agrid": 6}),
+        "dsw_tracer_acc": 6, "agrid_winds": 6, "remap_banded": 3,
+        "fill_q2_zero": 1, "cup_gf_sh": 1, "gfdl_microphysics": 1,
+        "chart_scalar": 38, "chart_agrid": 6}),
     # c48-L26 with terrain, no tracers: the remap takes pt alone, then u,
     # then v
     "jw_baroclinic_c48_l26_fused": ("jw", 10, {
         "dsw_csw1": 6, "dsw_csw2": 6, "dsw_transport": 6, "dsw_wind": 6,
-        "remap_banded": 3, "chart_scalar": 30, "chart_agrid": 6}),
+        "agrid_winds": 6, "remap_banded": 3, "chart_scalar": 30,
+        "chart_agrid": 6}),
 }
 # phase 4: the chart-corner kernels on the c192-L72 fused step's inputs,
 # the scalar one under each of its three weight tables
 CHART_FORMS = ("x", "y", "derived")
+# phase 4 and `--stages agrid`: agrid_winds timed on the inputs of the
+# c192-L72 fused preset's step at these npx: c192 (the Held-Suarez cells)
+# and C180 (the aquaplanet cell's dycore shapes)
+AGRID_SIZES = (192, 180)
 # phase 10: the JW06 validation through the port's dispatch, and the
 # reference's own calibration at c48-L26 (tests/test_baroclinic_wave.py:
 # steady 4-day max |ps - 1e5| and ps_min by day), printed beside it
@@ -557,6 +578,22 @@ def equal_to_plain(label, got, want):
     return nans
 
 
+def bitwise(label, got, want):
+    """Fails unless every output equals its plain version bit for bit
+    (as int32: signed zeros count)."""
+    import torch
+
+    for n, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape:
+            fail(f"{label} output {n}: shape {tuple(g.shape)} vs plain "
+                 f"{tuple(w.shape)}")
+        diff = g.view(torch.int32) != w.view(torch.int32)
+        if bool(diff.any()):
+            fail(f"{label} output {n}: {int(diff.sum())} elements differ "
+                 f"from the plain version in their bits (max "
+                 f"{float((g - w).abs().max()):.3e})")
+
+
 def kernel_inputs(torch, np, model, dev, steps=2, sharded=None):
     """{kernel name: args} at the model's shapes from a real state: init
     (3 K of pt noise, a tracer 1 + 0.2 U[0,1); JW06: the perturbed
@@ -614,7 +651,11 @@ def check_kernels(torch, dsw, args, names, form, card, results, reps=20):
         got, want = kern(*a), plain(*a)
         torch.cuda.synchronize()
         key = f"{kname} {form}".strip()
-        if kname in NAN_AS_PLAIN:
+        if kname in BITWISE:
+            bitwise(key, got, want)
+            err = rel = 0.0
+            print(f"[kernel] {key}: equal to its plain version bit for bit")
+        elif kname in NAN_AS_PLAIN:
             nans = equal_to_plain(key, got, want)
             err = rel = 0.0
             print(f"[kernel] {key}: equal to its plain version in every "
@@ -722,6 +763,63 @@ def check_chart(torch, model, card, results, reps=10):
         lambda u, v: kchart.chart_agrid_plain(u, v, sub.pu, sub.pv,
                                               chart.st_w, chart.st_mask, h),
         list(winds), (F, K, h, True, chart.st_mask))
+
+
+def agrid_timing(torch, np, dsw, build_model_for, dev, card, results,
+                 reps=20):
+    """agrid_winds on the inputs of one fused step of the c192-L72 preset at
+    each npx of AGRID_SIZES (after one step from the perturbed start): one
+    launch, equal to its plain version bit for bit; the median time of the
+    call and of its plain version (CUDA events around each, host time of
+    the wrapper included), the device time a call of each in a profiler
+    window of 10 calls with its launches, and the bound by bytes with the
+    kernel's device time's share of it.  results['agrid_winds c<npx>']."""
+    from dataclasses import replace
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from geosongpu_tpu_torch.cli import PRESETS
+
+    pname = "held_suarez_c192_l72_fused"
+    for npx in AGRID_SIZES:
+        model = build_model_for(pname)(replace(PRESETS[pname], npx=npx), dev)
+        a = kernel_inputs(torch, np, model, dev, steps=1)["agrid_winds"]
+        del model
+        key = f"agrid_winds c{npx}"
+        n0 = dsw.agrid_winds.launches
+        got, want = dsw.agrid_winds(*a), dsw.agrid_winds_plain(*a)
+        torch.cuda.synchronize()
+        if dsw.agrid_winds.launches != n0 + 1:
+            fail(f"{key}: {dsw.agrid_winds.launches - n0} launches, not 1")
+        bitwise(key, got, want)
+        k_ms = median_ms(torch, lambda: dsw.agrid_winds(*a), reps=reps)
+        p_ms = median_ms(torch, lambda: dsw.agrid_winds_plain(*a), reps=reps)
+        device = {}
+        for label, fn in (("kernel", dsw.agrid_winds),
+                          ("plain", dsw.agrid_winds_plain)):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    fn(*a)
+                torch.cuda.synchronize()
+            times = device_times(prof).values()
+            device[label] = (sum(t for t, _ in times) / 10 / 1e3,
+                             sum(c for _, c in times) / 10)
+        by = bound("agrid_winds", tensors_of(a, METRICS_READ["agrid_winds"]),
+                   got)
+        b_ms, b_by = max(by), ("bytes" if by[0] >= by[1] else "operations")
+        if device["kernel"][0] <= 0.0:
+            fail(f"{key}: the profiler window holds no device time")
+        results[key] = (0.0, k_ms, p_ms, b_ms, b_by)
+        print(f"[kernel] {key} {tuple(got[0].shape)}: bit for bit with its "
+              f"plain version, one launch; kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms (median of {reps}); device a call: kernel "
+              f"{device['kernel'][0]:.4f} ms ({device['kernel'][1]:g} "
+              f"launches), plain {device['plain'][0]:.4f} ms "
+              f"({device['plain'][1]:g} launches); bound {b_ms:.4f} ms by "
+              f"{b_by}, the kernel's device time at "
+              f"{100 * b_ms / device['kernel'][0]:.1f}% of it ({card})")
+        del a, got, want
+        torch.cuda.empty_cache()
 
 
 def device_times(prof):
@@ -1445,7 +1543,8 @@ def run_launches(dyc, steps, warmup, tree):
     """The exact launches of one run of the HeldSuarez task (the Aquaplanet
     task's too) of a hydrostatic model under `dyc`.  A step: the banded
     remap's three calls a remap interval; under pallas_dycore each of the
-    four substep kernels once a substep and dsw_tracer_acc once a tracer
+    four substep kernels and agrid_winds once a substep and dsw_tracer_acc
+    once a tracer
     and tracer subcycle a remap interval; under pallas_microphysics the
     three physics kernels once; with chart corners the two chart kernels
     once a call of the corrections.  The run: max(1, warmup) + steps steps
@@ -1463,7 +1562,8 @@ def run_launches(dyc, steps, warmup, tree):
         per_step["remap_banded"] = 3 * dyc.k_split
         per_leaf["remap_banded"] = 3
     if dyc.pallas_dycore:
-        for k in ("dsw_csw1", "dsw_csw2", "dsw_transport", "dsw_wind"):
+        for k in ("dsw_csw1", "dsw_csw2", "dsw_transport", "dsw_wind",
+                  "agrid_winds"):
             per_step[k] = dyc.k_split * dyc.n_split
             per_leaf[k] = 1
         if dyc.z_tracer and dyc.ntracers:
@@ -2456,14 +2556,14 @@ def step_bytes(torch, np, model, dev):
     """Phase 3/4's bytes a step of the fused c48-L72 path moves: each
     substep kernel's bound bytes on kernel_inputs times its launches a
     step, and remap_banded's over the step's three calls (the roofline's
-    recorder, which these bytes check, keeps no chart-corner call)."""
+    recorder, which these bytes check, keeps no call of GLUE_KERNELS)."""
     from geosongpu_tpu_torch.ops.kernels import dsw
 
     per_step = PATHS[SHARDED_PRESET][2]
     args = kernel_inputs(torch, np, model, dev)
     out = {}
     for name, n in per_step.items():
-        if name not in args:
+        if name not in args or name in GLUE_KERNELS:
             continue
         got = getattr(dsw, name)(*args[name])
         out[name] = n * moved_bytes(tensors_of(args[name],
@@ -2637,6 +2737,9 @@ def main() -> int:
         run_tools(torch, np, build_model_for, card, dev)
         return 0
     if "--stages" in sys.argv[1:]:
+        if "agrid" in sys.argv[1:]:
+            agrid_timing(torch, np, dsw, build_model_for, dev, card, {})
+            return 0
         if "solve" in sys.argv[1:]:
             pname = "held_suarez_c48_l72_nh_fused"
             form, _, steps = STAGE_KERNELS[pname]
@@ -2737,6 +2840,7 @@ def main() -> int:
                   reps=10)
     del args
     check_chart(torch, model_of("held_suarez_c192_l72_fused"), card, results)
+    agrid_timing(torch, np, dsw, build_model_for, dev, card, results)
     # the terrain term: dsw_csw2 and dsw_wind on the JW06 model's inputs,
     # whose context carries the balancing surface geopotential
     jw = model_of(JW_PRESET)
@@ -2744,9 +2848,9 @@ def main() -> int:
     if not phis > 1e3:
         fail(f"the JW06 context's terrain is flat (max|phis| {phis})")
     args = kernel_inputs(torch, np, jw, dev)
-    check_kernels(torch, dsw, args, ["dsw_csw2", "dsw_wind"], "jw", card,
-                  results)
-    for key in ("dsw_csw2 jw", "dsw_wind jw"):
+    check_kernels(torch, dsw, args, ["dsw_csw2", "dsw_wind", "agrid_winds"],
+                  "jw", card, results)
+    for key in ("dsw_csw2 jw", "dsw_wind jw", "agrid_winds jw"):
         if results[key][0] != 0.0:
             fail(f"{key}: {results[key][0]:.3e} from its plain version with "
                  f"terrain, not 0.0")
@@ -2832,12 +2936,14 @@ def main() -> int:
         ("dsw_tracer", "dsw_tracer", "nh"),
         ("dsw_nh_pert", "dsw_nh_pert", "nh"),
         ("nh_vertical_solve", "nh_vertical_solve", "nh"),
+        ("agrid_winds", "agrid_winds", "fused"),
         ("gfdl_microphysics", "gfdl_microphysics", "aqua"),
         ("fill_q2_zero", "fill_q2_zero", "aqua")] + [
         (k, k, "aqua" if k == "cup_gf_sh" else "gate")
         for k in COLUMN_PHYSICS[2:]] + [
         ("dsw_csw2 jw", "dsw_csw2", "jw"),
-        ("dsw_wind jw", "dsw_wind", "jw")] + [
+        ("dsw_wind jw", "dsw_wind", "jw"),
+        ("agrid_winds jw", "agrid_winds", "jw")] + [
         (f"chart_scalar {f} c192", "chart_scalar", "c192")
         for f in CHART_FORMS] + [("chart_agrid c192", "chart_agrid", "c192")]
     for key, k, path in entries:
@@ -2863,7 +2969,9 @@ def main() -> int:
          for k in list(KERNELS)[:6]])}))
     print(json.dumps({"kernels_c192": rows(
         [(f"{k} c192", k, "c192")
-         for k in C192_KERNELS + ["remap_banded"]])}))
+         for k in C192_KERNELS + ["remap_banded"]]
+        + [(f"agrid_winds c{n}", "agrid_winds", "c192")
+           for n in AGRID_SIZES])}))
     print(f"[main] whole script: {time.perf_counter() - T_START:.1f} s "
           f"({card})")
     print(json.dumps({"kernels": rows(entries)}))

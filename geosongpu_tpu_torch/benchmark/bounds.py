@@ -30,15 +30,17 @@ F32_FLOP_PER_S = 67e12   # float32 outside the tensor cores (data sheet)
 # Newton linearisations ~61 (clamp, the ratio, pow, p* 1, s 2, p' 4, rho
 # 2, rho_i 2, dz_i 2, alpha 3, dt s 2, b 3, a 2, c 2, rhs 3, the forward
 # sweep 6 with two divisions, the back substitution 2, z* 3), the clamp
-# and layer w 3: ~180).  Every kernel comes out bound by its bytes.
+# and layer w 3: ~180); agrid_winds per point, its two winds: the averages
+# 4, the rotation 8, the two resamples 10 each.  Every kernel comes out
+# bound by its bytes.
 OPS_PER_POINT = {
     "remap_banded": 250, "dsw_csw1": 80, "dsw_csw2": 170,
     "dsw_transport": 330, "dsw_transport nh": 650, "dsw_wind": 220,
     "dsw_wind blend": 280, "dsw_wind nh": 345, "dsw_tracer_acc": 170,
     "dsw_tracer": 165, "dsw_nh_pert": 70, "nh_vertical_solve": 180,
-    "gfdl_microphysics": 500, "fill_q2_zero": 6, "aer_activation": 70,
-    "moist_rad_coup": 35, "cup_gf_sh": 60, "buoyancy": 10,
-    "evap_subl_pdf": 80,
+    "agrid_winds": 32, "gfdl_microphysics": 500, "fill_q2_zero": 6,
+    "aer_activation": 70, "moist_rad_coup": 35, "cup_gf_sh": 60,
+    "buoyancy": 10, "evap_subl_pdf": 80,
 }
 # The PaddedMetrics fields each kernel (and form) reads: the met(m, X, ...)
 # uses of its source and of the csrc/dsw_common.cuh stages it launches
@@ -68,6 +70,7 @@ METRICS_READ = {
     "dsw_tracer": FVTP2D_METRICS + ("rarea",),
     "dsw_nh_pert": (),
     "nh_vertical_solve": (),
+    "agrid_winds": ("dr11", "r12", "r21", "dr22", "jwm", "jwp", "iwm", "iwp"),
     **{k: () for k in COLUMN_KERNELS},
 }
 

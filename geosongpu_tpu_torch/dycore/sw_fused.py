@@ -3,9 +3,11 @@
 `d_sw_substep_fused` runs one acoustic substep as the JAX package's
 d_sw_substep_pallas does (sw_pallas.py:432-723), with its face kernels as
 the CUDA kernels of ops/kernels/dsw.py and the glue between them in
-PyTorch (the nonhydrostatic vertical solve a kernel of its own):
+PyTorch (the A-grid winds and the nonhydrostatic vertical solve, glue of
+the reference, kernels of their own):
 
-1. A-grid winds and the chart reconstruction of their corners;
+1. A-grid winds (agrid_winds) and the chart reconstruction of their
+   corners;
 2. dsw_csw1 (C-grid winds, half-step delp/pt, KE, vorticity);
 3. the one-sided chart resample of the vorticity;
 4. dsw_csw2 (column integral of the half state folded in, uct/vct);
@@ -34,7 +36,7 @@ from ..ops.kernels import dsw
 from ..parallel.halo import HaloOps
 from ..spans import span
 from .sw import (PaddedMetrics, StagResample, SubstepOut, SWState,
-                 a_grid_winds, damping_divergence)
+                 damping_divergence)
 
 
 def d_sw_substep_fused(s: SWState, m: PaddedMetrics, ops: HaloOps,
@@ -84,7 +86,7 @@ def _substep(s, m, ops, dt, ptop, hord, d2_bg, advect_tracers, hord_mt,
     nonhydro = s.pz_x is not None
 
     with span("agrid"):
-        ua, va = a_grid_winds(s.pu, s.pv, m)
+        ua, va = call("agrid_winds", s.pu, s.pv, m)
         if chart is not None:
             ua, va = chart.apply_agrid(ua, va, s.pu, s.pv)
     uc, vc, delp_h, pt_h, ke, vort = call(

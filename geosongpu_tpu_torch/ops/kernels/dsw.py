@@ -6,11 +6,13 @@ nonhydrostatic with w and delz), dsw_tracer and dsw_wind
 (d_sw_substep_pallas k1-k4 and k3b; dsw_wind with either damping form and
 with the nonhydrostatic PGF terms), dsw_nh_pert (_nh_pert_kernel, the
 column stage the nonhydrostatic dsw_wind runs first) and dsw_tracer_acc
-(tracer_interval_advect_pallas); and nh_vertical_solve
+(tracer_interval_advect_pallas); and two kernels of the reference's XLA
+glue, which it runs outside any Pallas kernel: nh_vertical_solve
 (csrc/nh_vertical_solve.cu), the nonhydrostatic substep's vertical glue
-between dsw_transport and dsw_wind, which the reference runs as XLA glue
-(sw_pallas.py:618-630: the lax.scan pair of dycore/nh_solver.py) and not as
-a Pallas kernel.  For each: the wrapper, its `launches` counter and its
+between dsw_transport and dsw_wind (sw_pallas.py:618-630: the lax.scan
+pair of dycore/nh_solver.py), and agrid_winds (csrc/dsw_agrid.cu), the
+A-grid winds before dsw_csw1 (sw_pallas.py:475-479: dycore/sw.py
+a_grid_winds).  For each: the wrapper, its `launches` counter and its
 plain PyTorch version `<name>_plain`, which has the wrapper's signature and
 composes the port's dycore/sw.py functions.
 
@@ -34,8 +36,9 @@ import torch
 from ...core.grid import CP_AIR, GRAV, KAPPA, RDGAS
 from ...dycore.nh_solver import GAMMA
 from ...dycore.sw import (P00, PaddedMetrics, SWState, _hydrostatic_fields,
-                          c_sw_part1, c_sw_part2, nh_perturbation_fields,
-                          nh_vertical_glue, transport_part, wind_part)
+                          a_grid_winds, c_sw_part1, c_sw_part2,
+                          nh_perturbation_fields, nh_vertical_glue,
+                          transport_part, wind_part)
 from ...spans import spanned
 from ..fvtp2d import ddx, ddy, fvtp2d
 from .build import check_tensors as _check
@@ -78,6 +81,11 @@ def courant(u, v, m: PaddedMetrics, dt: float):
     """Courant numbers and area fluxes from advective winds
     (sw_pallas.py:548-550): (crx, cry, xfx, yfx)."""
     return u * dt * m.rdxc, v * dt * m.rdyc, u * dt * m.dy, v * dt * m.dx
+
+
+# -> (ua, va): the average to cell centres, the halo basis rotation and
+# the chart resample in y then x
+agrid_winds_plain = a_grid_winds
 
 
 def dsw_csw1_plain(pu, pv, ua, va, pd_x, pd_y, pt_x, pt_y,
@@ -213,6 +221,28 @@ def _hord(kernel: str, hord: int):
 # --------------------------------------------------------------------------
 # wrappers
 # --------------------------------------------------------------------------
+
+@spanned("kernel.agrid_winds")
+def agrid_winds(pu, pv, m: PaddedMetrics):
+    """The A-grid winds of the padded D-grid winds pu [F, Ny+1, Nx, K] and
+    pv [F, Ny, Nx+1, K] in one launch (sw_pallas.py:475-479, the glue
+    before k1) -> (ua, va), each [F, Ny, Nx, K]."""
+    dev = _device("agrid_winds: pu", pu)
+    if dev.type == "cpu":
+        return agrid_winds_plain(pu, pv, m)
+    F, Ny, Nx, K = _grid("agrid_winds: pu", pu)
+    Ny -= 1
+    c = (F, Ny, Nx, K)
+    _check("agrid_winds", dev, [("pu", pu, (F, Ny + 1, Nx, K)),
+                                ("pv", pv, (F, Ny, Nx + 1, K))])
+    ms = _metrics("agrid_winds", m, F, Ny, Nx, dev)
+    ua, va = (torch.empty(c, dtype=torch.float32, device=dev)
+              for _ in range(2))
+    _launch("agrid_winds", "Piiii" + "PPPP", dev,
+            [ctypes.addressof(ms), F, Ny, Nx, K, *_ptrs(pu, pv, ua, va)])
+    agrid_winds.launches += 1
+    return ua, va
+
 
 @spanned("kernel.dsw_csw1")
 def dsw_csw1(pu, pv, ua, va, pd_x, pd_y, pt_x, pt_y, m: PaddedMetrics,
@@ -448,6 +478,6 @@ def dsw_tracer_acc(qx, qy, pd_x, uacc, vacc, mfx, mfy, m: PaddedMetrics,
 
 
 KERNELS = (dsw_csw1, dsw_csw2, dsw_transport, dsw_wind, dsw_tracer_acc,
-           dsw_tracer, dsw_nh_pert, nh_vertical_solve)
+           dsw_tracer, dsw_nh_pert, nh_vertical_solve, agrid_winds)
 for _k in KERNELS:
     _k.launches = 0

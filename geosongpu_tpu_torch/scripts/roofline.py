@@ -120,10 +120,13 @@ def form_of(name: str, args) -> str:
 @contextlib.contextmanager
 def recording(calls: list):
     """Record every call of the dycore's kernel wrappers in the block as
-    (wrapper, form, input bytes + output bytes, points): the dsw_* wrappers
-    (dycore/sw_fused.py calls them through the module) and remap_banded
-    (through dycore/fv_dynamics.py's name).  Each wrapper's launch count
-    is kept across the block."""
+    (wrapper, form, input bytes + output bytes, points): the wrappers of
+    ops/kernels/dsw.py whose launches the trace names by a stage of
+    STAGE_OWNER (dycore/sw_fused.py calls them through the module; the
+    A-grid kernel, glue of the reference, is counted with the glue, as the
+    chart-corner kernels are) and remap_banded (through
+    dycore/fv_dynamics.py's name).  Each wrapper's launch count is kept
+    across the block."""
     from ..benchmark.bounds import METRICS_READ, VTX_METRICS, moved_bytes, \
         tensors_of
     from ..dycore import fv_dynamics
@@ -148,7 +151,9 @@ def recording(calls: list):
         rec.launches = orig.launches
         return rec
 
-    patched = [(dsw, k.__name__, k) for k in dsw.KERNELS] + [
+    owned = set(STAGE_OWNER.values())
+    patched = [(dsw, k.__name__, k) for k in dsw.KERNELS
+               if k.__name__ in owned] + [
         (fv_dynamics, "remap_banded", fv_dynamics.remap_banded)]
     # inside a wrapper, `<name>.launches += 1` reads the module's name,
     # which is the recorder while the block runs

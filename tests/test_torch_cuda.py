@@ -5,9 +5,12 @@ kernels, gfdl_microphysics and fill_q2_zero in every element at the edges
 of their tiles of columns, fill_q2_zero in its multi-tracer form too,
 cup_gf_sh and aer_activation in every element across their blocks' runs
 of points and on inputs off a 16-byte boundary)
-and the two chart-corner kernels (chart_scalar, chart_agrid: in place, at
+the two chart-corner kernels (chart_scalar, chart_agrid: in place, at
 the c48-L72 and c192-L72 shapes and on the gated slots of the (2,4) step)
-against their plain PyTorch versions, their input checks, the physics gate
+and the A-grid winds (agrid_winds: bit for bit, signed zeros included, at
+the shapes of every path that runs it, and three fused steps of each
+model with it and with its plain version patched in) against their plain
+PyTorch versions, their input checks, the physics gate
 on the card, the hardware sampler's NVML readings of the card (the handle
 is torch's device, the energy counter never decreases, the utilization
 rises under load and falls back when idle), and the port's models on the
@@ -160,7 +163,7 @@ COLUMN_KERNELS = ("dsw_csw2", "dsw_wind", "dsw_nh_pert")   # gate with a floor
 CASES = ["dsw_csw1", "dsw_csw2", "dsw_transport", "dsw_wind",
          "dsw_tracer_acc", "dsw_transport nh", "dsw_wind nh", "dsw_tracer",
          "dsw_nh_pert", "dsw_wind blend", "dsw_wind nh+blend",
-         "nh_vertical_solve nh"]
+         "nh_vertical_solve nh", "agrid_winds"]
 
 
 def _within_gate(name, got, want):
@@ -281,6 +284,8 @@ def _synthetic_args(case, F, Ny, Nx, K, seed, dev, mask="random"):
                 100.0, 1.0, 8, 0.015, 0.05, delz_f)
     if name == "dsw_nh_pert":
         return (t(delp(c)), t(pt(c)), t(delz(c)), 100.0)
+    if name == "agrid_winds":
+        return (t(wind(yi)), t(wind(xi)), m)
     if name == "nh_vertical_solve":
         # far from balance at depth: the solve's delz reaches the 1 m clamp
         # in some columns from K = 17 on
@@ -341,7 +346,7 @@ TILE_FACES = [(2, 10, 13), (1, 15, 7), (1, 4, 5)]
 TILE_CASES = ["dsw_csw2", "dsw_wind", "dsw_wind blend", "dsw_wind nh",
               "dsw_wind nh+blend", "dsw_csw1", "dsw_transport",
               "dsw_transport nh", "dsw_tracer_acc", "dsw_tracer",
-              "dsw_nh_pert", "nh_vertical_solve"]
+              "dsw_nh_pert", "nh_vertical_solve", "agrid_winds"]
 
 
 def _equal_to_plain(case, a):
@@ -604,7 +609,7 @@ def test_fused_model_on_card_matches_cpu(cuda):
     cfg = dataclasses.replace(SMALL, ntracers=1, pallas_dycore=True)
     n = cfg.n_split
     _card_vs_cpu(cfg, cuda, ("u", "v", "delp", "pt", "q", "ps"),
-                 [n, n, n, n, cfg.q_split, 0, 0, 0, 3])
+                 [n, n, n, n, cfg.q_split, 0, 0, 0, n, 3])
 
 
 def test_nh_fused_model_on_card_matches_cpu(cuda):
@@ -615,7 +620,7 @@ def test_nh_fused_model_on_card_matches_cpu(cuda):
                               w_sponge_p=2.0e4)
     n = cfg.n_split
     _card_vs_cpu(cfg, cuda, ("u", "v", "delp", "pt", "q", "ps", "w", "delz"),
-                 [n, n, n, n, 0, n, n, n, 3])
+                 [n, n, n, n, 0, n, n, n, n, 3])
 
 
 @pytest.mark.parametrize("form", ["hydrostatic", "nonhydrostatic",
@@ -656,6 +661,11 @@ def test_kernel_spans_count_the_launches(cuda, form):
                                 if r.name.startswith("chart."))
     assert launched["chart_scalar"] == calls["chart.scalar"] > 0
     assert launched["chart_agrid"] == calls["chart.agrid"] > 0
+    # the A-grid kernel once a substep, inside the `agrid` span
+    assert launched["agrid_winds"] == counted["agrid_winds"] == cfg.n_split
+    for r in records:
+        if r.name == "kernel.agrid_winds":
+            assert records[r.parent].name == "agrid"
     for f in dataclasses.fields(ref):
         assert torch.equal(getattr(got, f.name), getattr(ref, f.name)), f.name
 
@@ -691,6 +701,105 @@ def test_aquaplanet_column_kernels_once_a_step(cuda):
     for r in records:
         if r.name in inside:
             assert records[r.parent].name == "physics", r.name
+
+
+# agrid_winds (csrc/dsw_agrid.cu) bit for bit at the padded shapes of every
+# path that runs it: the c192-L72 and C180-L72 faces of the three cells,
+# c48-L72, the aquaplanet's c48-L32, JW06's c48-L26 (K % 4 != 0: one float
+# a thread), the stacked (2,4) blocks of c48-L72 (48 slots of 24 x 12) and
+# of the c16 sharded experiment (48 of 8 x 4), and a ragged small face
+AGRID_SHAPES = {"c192-L72": (6, 198, 198, 72), "C180-L72": (6, 186, 186, 72),
+                "c48-L72": (6, 54, 54, 72), "c48-L32": (6, 54, 54, 32),
+                "c48-L26": (6, 54, 54, 26),
+                "c48-L72 (2,4)": (48, 30, 18, 72),
+                "c16-L72 (2,4)": (48, 14, 10, 72), "ragged": (2, 5, 7, 3)}
+
+
+def _agrid_args(F, Ny, Nx, K, seed, dev):
+    """(pu, pv, metrics) on the card: winds of ~30 m/s with a twentieth of
+    them -0.0 and a twentieth +0.0, metrics whose rotation and resample
+    weights are exact zeros on half the cells (as the interior's are)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    u = lambda shape: 2.0 * torch.rand(shape, generator=gen,
+                                       device=dev) - 1.0
+
+    def wind(shape):
+        x, r = 30.0 * u(shape), u(shape)
+        x = torch.where(r < -0.9, torch.full_like(x, -0.0), x)
+        return torch.where(r > 0.9, torch.zeros_like(x), x)
+
+    mets = {}
+    for f, (sy, sx) in METRIC_STAGGER.items():
+        shape = (F, Ny + sy, Nx + sx, 1)
+        x = 0.2 * u(shape)
+        mets[f] = torch.where(u(shape) < 0.0, torch.zeros_like(x), x)
+    return (wind((F, Ny + 1, Nx, K)), wind((F, Ny, Nx + 1, K)),
+            PaddedMetrics(**mets))
+
+
+def _bitwise(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+@pytest.mark.parametrize("shape", list(AGRID_SHAPES))
+def test_agrid_winds_bitwise_at_path_shapes(cuda, shape):
+    a = _agrid_args(*AGRID_SHAPES[shape], seed=19, dev=cuda)
+    before = dsw.agrid_winds.launches
+    got = dsw.agrid_winds(*a)
+    torch.cuda.synchronize()
+    assert dsw.agrid_winds.launches == before + 1
+    want = dsw.agrid_winds_plain(*a)
+    for g, w in zip(got, want):
+        assert _bitwise(g, w), shape
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["pu", "pv"])
+def test_agrid_winds_unaligned_inputs(cuda, which):
+    """An input 4 bytes off a 16-byte boundary takes the one-float form."""
+    a = list(_agrid_args(2, 11, 10, 8, seed=23, dev=cuda))
+    x = a[which]
+    buf = torch.empty(x.numel() + 1, device=cuda)
+    buf[1:] = x.reshape(-1)
+    a[which] = buf[1:].view(x.shape)
+    assert a[which].data_ptr() % 16 != 0 and a[which].is_contiguous()
+    for g, w in zip(dsw.agrid_winds(*a), dsw.agrid_winds_plain(*a)):
+        assert _bitwise(g, w)
+
+
+@pytest.mark.parametrize("form", ["hydrostatic", "nonhydrostatic", "blend",
+                                  "aquaplanet"])
+def test_fused_steps_equal_with_plain_agrid(cuda, form, monkeypatch):
+    """3 fused c12-L8 steps on the card through agrid_winds, and again with
+    its plain version patched in: every field bit for bit."""
+    from geosongpu_tpu_torch.models import aquaplanet
+
+    build = build_model
+    cfg = dataclasses.replace(SMALL, ntracers=1, pallas_dycore=True)
+    if form == "nonhydrostatic":
+        cfg = dataclasses.replace(NH, ntracers=1, pallas_dycore=True)
+    elif form == "blend":
+        cfg = dataclasses.replace(cfg, damping_exchange="blend")
+    elif form == "aquaplanet":
+        cfg = dataclasses.replace(SMALL, ntracers=3, pallas_dycore=True,
+                                  pallas_microphysics=True)
+        build = aquaplanet.build_model
+    model = build(cfg, cuda)
+    start = model.init(perturb=3.0)
+    before = dsw.agrid_winds.launches
+    got = model.run(start, 3)
+    torch.cuda.synchronize()
+    assert dsw.agrid_winds.launches - before == 3 * cfg.n_split
+    monkeypatch.setattr(dsw, "agrid_winds", dsw.agrid_winds_plain)
+    want = model.run(start, 3)
+    for f in dataclasses.fields(want):
+        g, w = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(w, torch.Tensor) and w.dtype == torch.float32:
+            assert _bitwise(g, w), f.name
+        elif isinstance(w, torch.Tensor):
+            assert torch.equal(g, w), f.name
+    assert float((got.u - start.u).abs().max()) > 0.0
 
 
 # chart corners (csrc/chart_corners.cu): c48-L72, c192-L72 and the gated
@@ -823,7 +932,7 @@ def test_blend_fused_model_on_card_matches_cpu(cuda):
                               damping_exchange="blend")
     n = cfg.n_split
     _card_vs_cpu(cfg, cuda, ("u", "v", "delp", "pt", "q", "ps"),
-                 [n, n, n, n, cfg.q_split, 0, 0, 0, 3])
+                 [n, n, n, n, cfg.q_split, 0, 0, 0, n, 3])
 
 
 def test_jw_fused_model_on_card_matches_cpu(cuda):
@@ -838,7 +947,7 @@ def test_jw_fused_model_on_card_matches_cpu(cuda):
                        pallas_dycore=True)
     n = cfg.n_split
     _card_vs_cpu(cfg, cuda, ("u", "v", "delp", "pt", "ps"),
-                 [n, n, n, n, 0, 0, 0, 0, 3],
+                 [n, n, n, n, 0, 0, 0, 0, n, 3],
                  build=baroclinic_wave.build_model, noise_floor=True)
 
 

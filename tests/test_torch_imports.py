@@ -170,7 +170,7 @@ def test_every_kernel_source_has_a_counting_wrapper():
     for src in (PKG / "csrc").glob("*.cu"):
         entries |= set(re.findall(r'extern "C" int (\w+)_f32\(',
                                   src.read_text()))
-    assert len(entries) == 18
+    assert len(entries) == 19
     for name in entries:
         owners = [m for m in modules if hasattr(m, name)]
         assert len(owners) == 1, name

@@ -9,8 +9,9 @@
 - One small Held-Suarez step on the fused path and one nonhydrostatic
   step give the expected span tree: one root `step` per step, one
   `substep` per acoustic substep, one `kernel.*` span per kernel wrapper
-  call (the calls the card's `launches` counters count), the fills inside
-  the substeps; the states are bit-identical with recording on and off.
+  call (the calls the card's `launches` counters count; the A-grid
+  kernel's inside `agrid`), the fills inside the substeps; the states
+  are bit-identical with recording on and off.
 - The stacked step of the subtile tests records the fills with their
   exchange rounds (`exchange.permute`) inside.
 - The clock: under torch.profiler with CPU activity, an aten op issued
@@ -38,7 +39,7 @@ HS = dict(npx=8, npz=6, dt=1200.0, n_split=2, hord_tm=6, ntracers=1,
           pallas_dycore=True)
 NH = dict(HS, hydrostatic=False, z_tracer=False)
 DSW = ("kernel.dsw_csw1", "kernel.dsw_csw2", "kernel.dsw_transport",
-       "kernel.dsw_wind")
+       "kernel.dsw_wind", "kernel.agrid_winds")
 
 
 @pytest.fixture(autouse=True)
@@ -157,6 +158,8 @@ def _check_tree(records, cfg, steps):
             assert "substep" in chain, (r.name, chain)
         if r.name == "kernel.remap_banded":
             assert chain[0] == "remap"
+        if r.name == "kernel.agrid_winds":
+            assert chain[0] == "agrid"
         if r.name.startswith("halo.fill"):
             assert chain[0] in ("substep", "tracer_acc", "remap",
                                 "damping_divergence"), chain
@@ -240,13 +243,13 @@ def _wrappers():
     return list(every()) + [fill_q2_zero_tracers]
 
 
-@pytest.mark.parametrize("index", range(19))
+@pytest.mark.parametrize("index", range(20))
 def test_each_kernel_wrapper_is_its_kernel_span(index):
     """Every wrapper with a `launches` counter runs inside the span
     `kernel.<name>` (fill_q2_zero_tracers counts, and is named, as
     fill_q2_zero), keeps its name and its counter."""
     wrappers = _wrappers()
-    assert len(wrappers) == 19
+    assert len(wrappers) == 20
     w = wrappers[index]
     counted = "fill_q2_zero" if w.__name__ == "fill_q2_zero_tracers" \
         else w.__name__

@@ -17,7 +17,8 @@ tests/test_torch_sw.py (3 K of pt noise, 2 steps):
   (tests/test_torch_cuda.py, chip_smoke.py);
 * each kernel's plain version against the JAX functions it replaces, on
   the same inputs: 1e-5 relative over the whole padded outputs for
-  dsw_csw1 and dsw_transport; for dsw_csw2 and dsw_wind, which integrate
+  dsw_csw1, dsw_transport and agrid_winds (the JAX a_grid_winds); for
+  dsw_csw2 and dsw_wind, which integrate
   columns, the wind gate less the two outermost rings (as above); the
   column integral against the TPU kernel's (_hydro_fields_kernel) at 1e-5
   relative;
@@ -27,7 +28,9 @@ tests/test_torch_sw.py (3 K of pt noise, 2 steps):
   package's own figure: the PPM edge weights 7/12 and 1/12 are not exact
   in f32, so a constant moves by up to 2 ulp);
 * on the CPU every wrapper is its plain version and no launch counter
-  moves;
+  moves; substep_kernel_args records agrid_winds with the substep's
+  padded D-grid winds, and its plain version with the chart corrections
+  gives the ua and va dsw_csw1 takes;
 * the blend damping form (stag_tabs=None: dsw_wind computes the damping
   divergence itself), the nonhydrostatic substep, the per-substep tracers
   (dsw_tracer) and both together, each against
@@ -54,7 +57,7 @@ from geosongpu_tpu.models.held_suarez import build_model  # noqa: E402
 from geosongpu_tpu_torch.core.config import DycoreConfig  # noqa: E402
 from geosongpu_tpu_torch.dycore import sw as tsw  # noqa: E402
 from geosongpu_tpu_torch.dycore.sw_fused import (  # noqa: E402
-    d_sw_substep_fused, tracer_interval_advect)
+    d_sw_substep_fused, substep_kernel_args, tracer_interval_advect)
 from geosongpu_tpu_torch.models import held_suarez as tmodel  # noqa: E402
 from geosongpu_tpu_torch.ops.kernels import dsw  # noqa: E402
 
@@ -106,8 +109,8 @@ def chain(models, filled_state):
     s = filled_state
     h, n = CFG.halo, CFG.npx
     c = {}
-    ua, va = jsw.a_grid_winds(s.pu, s.pv, m)
-    c["ua"], c["va"] = chart.apply_agrid(ua, va, s.pu, s.pv)
+    c["agrid"] = jsw.a_grid_winds(s.pu, s.pv, m)
+    c["ua"], c["va"] = chart.apply_agrid(*c["agrid"], s.pu, s.pv)
     c["csw1"] = jsw.c_sw_part1(s, m, 0.5 * DT, c["ua"], c["va"])
     uc, vc, delp_h, pt_h, ke, vort = c["csw1"]
     c["vort"] = chart.apply_scalar(vort, "derived")
@@ -139,6 +142,8 @@ def _port_args(name, s, chain, m):
     """The port's arguments of kernel `name`, from the JAX chain."""
     t = lambda k: _t(chain[k])
     uct, vct = (_t(a) for a in chain["csw2"])
+    if name == "agrid_winds":
+        return (s.pu, s.pv, m)
     if name == "dsw_csw1":
         return (s.pu, s.pv, t("ua"), t("va"), s.pd_x, s.pd_y, s.pt_x,
                 s.pt_y, m, 0.5 * DT)
@@ -200,7 +205,7 @@ def test_fused_substep_matches_jax_pallas(models, filled_state, vtx_damp):
 
 
 @pytest.mark.parametrize("name", ["dsw_csw1", "dsw_csw2", "dsw_transport",
-                                  "dsw_wind"])
+                                  "dsw_wind", "agrid_winds"])
 def test_plain_kernel_matches_jax_functions(models, filled_state, chain,
                                             name):
     """Each plain version against the JAX functions of the kernel body,
@@ -208,7 +213,8 @@ def test_plain_kernel_matches_jax_functions(models, filled_state, chain,
     against the reference's triangular matmul), hence their wind floor."""
     _, ctx = models
     ref = chain[{"dsw_csw1": "csw1", "dsw_csw2": "csw2",
-                 "dsw_transport": "transport", "dsw_wind": "wind"}[name]]
+                 "dsw_transport": "transport", "dsw_wind": "wind",
+                 "agrid_winds": "agrid"}[name]]
     args = _port_args(name, _torch_state(filled_state), chain, ctx.metrics)
     got = getattr(dsw, name + "_plain")(*args)
     assert len(got) == len(ref)
@@ -272,6 +278,25 @@ def test_cpu_wrapper_runs_plain_and_counts_nothing(models, filled_state,
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def test_substep_kernel_args_record_agrid_winds(models, filled_state):
+    """The A-grid kernel is recorded with the substep's padded D-grid winds
+    and metrics, and its plain version (dycore/sw.py::a_grid_winds itself)
+    then the chart corrections give the ua and va dsw_csw1 is handed."""
+    _, ctx = models
+    s = _torch_state(filled_state)
+    args, _ = substep_kernel_args(s, ctx.metrics, ctx.ops, DT, CFG.ptop,
+                                  hord=CFG.hord, d2_bg=CFG.d2_bg,
+                                  advect_tracers=False, hord_mt=CFG.hord_mt,
+                                  hord_tm=CFG.hord_tm, chart=ctx.chart,
+                                  stag_tabs=ctx.stag)
+    pu, pv, m = args["agrid_winds"]
+    assert pu is s.pu and pv is s.pv and m is ctx.metrics
+    assert dsw.agrid_winds_plain is tsw.a_grid_winds
+    ua, va = ctx.chart.apply_agrid(*dsw.agrid_winds_plain(pu, pv, m), pu, pv)
+    assert torch.equal(ua, args["dsw_csw1"][2])
+    assert torch.equal(va, args["dsw_csw1"][3])
 
 
 def test_blend_damping_form_matches_reference(models, filled_state, chain):
@@ -380,9 +405,9 @@ def test_substep_kernel_args_records_the_new_kernels(nh_models, nh_state):
     args, out = substep_kernel_args(s, ctx.metrics, ctx.ops, DT, CFG.ptop,
                                     hord_tm=CFG.hord_tm, chart=ctx.chart,
                                     stag_tabs=None)
-    assert sorted(args) == ["dsw_csw1", "dsw_csw2", "dsw_nh_pert",
-                            "dsw_tracer", "dsw_transport", "dsw_wind",
-                            "nh_vertical_solve"]
+    assert sorted(args) == ["agrid_winds", "dsw_csw1", "dsw_csw2",
+                            "dsw_nh_pert", "dsw_tracer", "dsw_transport",
+                            "dsw_wind", "nh_vertical_solve"]
     # the glue takes the padded transport outputs, delz_f is its refill
     assert args["nh_vertical_solve"][0].shape == args["dsw_wind"][14].shape
     assert args["nh_vertical_solve"][4:] == (DT, CFG.ptop)
